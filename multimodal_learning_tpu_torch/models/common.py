@@ -19,6 +19,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+
 
 def _fan_in(w: torch.Tensor) -> int:
     # torch layout: [out, in, *kernel] -> in * prod(kernel)
@@ -63,6 +65,45 @@ def init_linear_(layer: nn.Linear, max_init: bool,
         torch_linear_default_(layer.weight, generator)
         torch_linear_bias_(layer.bias, layer.in_features, generator)
     return layer
+
+
+class _FlaxRunningVar:
+    """Train-mode running-variance update of flax's BatchNorm.
+
+    torch's BatchNorm folds the *unbiased* batch variance (n/(n-1) times the
+    biased one, n the values per channel) into ``running_var``; flax folds
+    the *biased* one (``flax.linen.normalization._compute_stats``), and the
+    port is held against the JAX package.  Normalisation itself uses the
+    biased variance in both.  torch's kernel updates copies of the running
+    statistics (autograd saves the tensors it is given, so the buffers
+    themselves must not be rewritten after it); its
+    ``r' = (1-m) r + m n/(n-1) v`` is then turned into flax's
+    ``(1-m) r + m v = r' (n-1)/n + (1-m) r / n`` from the old ``r``, so no
+    second pass over the activations is needed.  The state_dict keys are
+    torch's."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self._check_input_dim(x)
+        n, m = x.numel() // x.shape[1], self.momentum
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, m,
+                         self.eps)
+        with torch.no_grad():
+            self.running_mean.copy_(mean)
+            self.running_var.copy_(var * ((n - 1) / n)
+                                   + self.running_var * ((1.0 - m) / n))
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+class BatchNorm1d(_FlaxRunningVar, nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` with flax's running-variance law."""
+
+
+class BatchNorm2d(_FlaxRunningVar, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running-variance law."""
 
 
 def apply_act(act_type: str, hazard: torch.Tensor) -> torch.Tensor:

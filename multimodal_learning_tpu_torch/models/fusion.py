@@ -7,13 +7,15 @@ names, so a reference or converted state_dict loads with ``strict=True``:
 ``encoder2`` alike.
 
 In eval with ``pallas_eval`` the ``encoder1`` contraction goes through
-``ops.kron_fusion.kron_matmul``: the CUDA kernel for CUDA tensors, its
-plain version for CPU tensors; the (d1+1)(d2+1) Kronecker vector is never
-formed.  Otherwise, and in training, it runs the reference einsum with
-dropout on the Kronecker vector (``fusion.py:59``).  The masked-dropout
-train kernel is not ported yet, so training on CUDA with ``pallas_train``
-raises rather than run plain PyTorch in its place.  The JAX package's 15 MB
-VMEM guard on the train kernel is a TPU limit and has no counterpart here.
+``ops.kron_fusion.kron_matmul`` (differentiable: an eval forward under
+autograd, as the saliency pass runs it, reaches the backward kernels); in
+training with ``pallas_train`` through ``kron_matmul_dropout``, with the
+dropout on the Kronecker vector (``fusion.py:59``) as an explicit mask.
+Each takes its CUDA kernel for CUDA tensors and its plain version for CPU
+tensors; the (d1+1)(d2+1) Kronecker vector never reaches device memory.
+Otherwise the reference einsum runs, with ``nn.Dropout``.  The JAX
+package's 15 MB VMEM guard on the train kernel is a TPU limit and has no
+counterpart here.
 
 The other fusion types of the JAX module are not ported yet.
 """
@@ -26,8 +28,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops.kron_fusion import kron_matmul
-from .common import init_linear_, max_init_
+from ..ops.kron_fusion import kron_matmul, kron_matmul_dropout
+from .common import BatchNorm1d, init_linear_, max_init_
 
 
 class Bilinear(nn.Module):
@@ -98,13 +100,21 @@ class _GatedUnit:
 class _KronEncoder1(nn.Module):
     """The Linear of ``encoder1``: owns the [mmhid, (d1+1)(d2+1)] weight
     (reference name ``encoder1.0``) and routes the contraction to
-    ``kron_matmul`` in eval, or to the reference einsum."""
+    ``kron_matmul`` in eval, to ``kron_matmul_dropout`` in training, or to
+    the reference einsum.
+
+    The train path draws its dropout mask Bernoulli(keep)/keep over the
+    Kronecker vector, as ``nn.Dropout`` would, from ``self.generator`` (a
+    ``torch.Generator`` on the tensors' device, which the train state sets;
+    the device's default generator when None), and ones when the rate is 0,
+    as the JAX module does."""
 
     def __init__(self, d1p: int, d2p: int, mmhid: int, dropout_rate: float,
                  pallas_eval: bool, pallas_train: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.pallas_eval, self.pallas_train = pallas_eval, pallas_train
+        self.generator: Optional[torch.Generator] = None
         self.weight = nn.Parameter(torch.empty(mmhid, d1p * d2p))
         self.bias = nn.Parameter(torch.zeros(mmhid))
         max_init_(self.weight, generator)
@@ -113,11 +123,17 @@ class _KronEncoder1(nn.Module):
     def forward(self, o1, o2):
         if self.pallas_eval and not self.training:
             return kron_matmul(o1, o2, self.weight, self.bias)
-        if self.pallas_train and self.training and o1.is_cuda:
-            raise NotImplementedError(
-                "pallas_fusion='train' on CUDA needs the masked-dropout "
-                "train kernel (the JAX package's _fwd_train_kernel), which "
-                "is not ported yet; train with pallas_fusion='eval' or 'off'")
+        if self.pallas_train and self.training:
+            shape = (o1.shape[0], self.weight.shape[1])
+            keep = 1.0 - self.drop.p
+            if self.drop.p > 0.0:
+                maskf = torch.bernoulli(
+                    torch.full(shape, keep, device=o1.device),
+                    generator=self.generator) / keep
+            else:
+                maskf = torch.ones(shape, device=o1.device)
+            return kron_matmul_dropout(o1.float(), o2.float(), self.weight,
+                                       self.bias, maskf)
         o12 = torch.einsum("bi,bj->bij", o1, o2).reshape(o1.shape[0], -1)
         return F.linear(self.drop(o12), self.weight, self.bias)
 
@@ -146,10 +162,10 @@ class BilinearFusion(nn.Module):
         self.encoder1 = nn.Sequential(
             _KronEncoder1(d1 + 1, d2 + 1, mmhid, dropout_rate, pallas_eval,
                           pallas_train, generator),
-            nn.BatchNorm1d(mmhid), nn.ReLU(), nn.Dropout(dropout_rate))
+            BatchNorm1d(mmhid), nn.ReLU(), nn.Dropout(dropout_rate))
         enc2_in = mmhid + (d1 + 1 + d2 + 1 if skip else 0)
         self.encoder2 = nn.Sequential(
-            _dense_max(enc2_in, mmhid, generator), nn.BatchNorm1d(mmhid),
+            _dense_max(enc2_in, mmhid, generator), BatchNorm1d(mmhid),
             nn.ReLU(), nn.Dropout(dropout_rate))
 
     def forward(self, vec1, vec2):

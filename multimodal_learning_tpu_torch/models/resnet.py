@@ -19,7 +19,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from .common import apply_act, autocast, init_linear_, kaiming_normal_out_
+from .common import (BatchNorm1d, BatchNorm2d, apply_act, autocast,
+                     init_linear_, kaiming_normal_out_)
 
 
 def _conv(cin, cout, k, stride, pad, generator):
@@ -35,14 +36,14 @@ class BasicBlock(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride, 1, generator)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3, 1, 1, generator)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
                 _conv(inplanes, planes, 1, stride, 0, generator),
-                nn.BatchNorm2d(planes))
+                BatchNorm2d(planes))
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -70,7 +71,7 @@ class ResNet(nn.Module):
         self.act_type = act_type
         self.dtype = dtype
         self.conv1 = _conv(3, 64, 7, 2, 3, generator)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = 64
         for i, n_blocks in enumerate(stage_sizes):
@@ -83,7 +84,7 @@ class ResNet(nn.Module):
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
         self.fc_new1 = nn.Sequential(
             init_linear_(nn.Linear(inplanes, path_dim), False, generator),
-            nn.BatchNorm1d(path_dim), nn.ReLU())
+            BatchNorm1d(path_dim), nn.ReLU())
         self.fc_new2 = init_linear_(nn.Linear(path_dim, num_classes), False,
                                     generator)
 

@@ -204,6 +204,21 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.cli._platform",
     "multimodal_learning_tpu_torch.cli.export_model",
     "multimodal_learning_tpu_torch.cli.predict",
+    "multimodal_learning_tpu_torch.data",
+    "multimodal_learning_tpu_torch.data.augment",
+    "multimodal_learning_tpu_torch.losses",
+    "multimodal_learning_tpu_torch.losses.task",
+    "multimodal_learning_tpu_torch.losses.kd",
+    "multimodal_learning_tpu_torch.losses.orth",
+    "multimodal_learning_tpu_torch.contrast",
+    "multimodal_learning_tpu_torch.contrast.crd",
+    "multimodal_learning_tpu_torch.train",
+    "multimodal_learning_tpu_torch.train.state",
+    "multimodal_learning_tpu_torch.train.ema",
+    "multimodal_learning_tpu_torch.train.optim",
+    "multimodal_learning_tpu_torch.train.schedules",
+    "multimodal_learning_tpu_torch.train.steps",
+    "multimodal_learning_tpu_torch.train.import_state",
     "chip_smoke",
 ]
 
