@@ -34,7 +34,24 @@ Phases, each of which raises on failure (nothing is caught):
 9. cross-checks one fp32 train step on the card (kernel path, TF32 off)
    against the CPU (plain path) from the same state and views;
 10. times B1, B3 and B4 against their plain versions, a PyTorch call where
-    one computes the same function, and their bounds.
+    one computes the same function, and their bounds;
+11. the train step of phase 7 again with ``--paired_conv True`` (the
+    64-channel stage's convolutions through B5, ``ops/paired_conv.py``):
+    20 timed steps that must launch B5 12 times each (4 in the student
+    forward, 4 in the EMA forward, 4 data gradients) and B1 twice, then a
+    profiled window that gives B5's share of the step;
+12. drives the CV drivers at full width with ``--paired_conv True``:
+    ``cli.train_cv_MT`` on one synthetic fold (2 epochs of 4 steps, an
+    eval of 32 ROIs after each) and ``cli.test_cv_MT`` on its checkpoint,
+    which must reproduce the final eval exactly; B5 must launch 12 times per
+    step and 4 per eval forward, B1 twice per step, B2 once per eval
+    forward;
+13. times B5 (bf16 and fp32) against its plain version, ``F.conv2d`` and
+    its bound.
+
+Phase 3 also holds B5 against its plain version (TF32 off) at the stage-1
+shape and three ragged ones, in bf16 and fp32, and its autograd function's
+gradients against autograd of ``F.conv2d``.
 
 The next-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
@@ -55,6 +72,9 @@ import torch
 SEED = 2019
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12     # fp32 outside the tensor cores
+H100_BF16_FLOP_PER_S = 989e12    # dense bf16 on the tensor cores
+CONV_SHAPES = [(16, 128, 128, 64), (1, 128, 128, 64), (3, 37, 50, 64),
+               (2, 8, 8, 64)]    # (B, H, W, C); the first is stage 1 at 512^2
 KRON_SHAPES = [(16, 129, 129, 128), (1, 129, 129, 128), (37, 129, 129, 128),
                (4, 9, 9, 16)]
 N_IMAGES = 20
@@ -189,18 +209,69 @@ def _check_train_kernels(gen, dev, card):
     return errs
 
 
+def _conv_inputs(shape, gen, dev, dtype):
+    """x as the trunk holds it ([B, 64, H, W], channels-last) at unit scale
+    and W at the stage's kaiming init, both in ``dtype``."""
+    x = torch.randn(*shape, generator=gen).to(dev, dtype).permute(0, 3, 1, 2)
+    w = (torch.randn(64, 64, 3, 3, generator=gen) * (2 / 576) ** 0.5).to(
+        dev, dtype)
+    return x, w
+
+
+def _check_conv_kernel(gen, dev, card):
+    """B5 against its plain version on the same inputs computed in fp32
+    (TF32 off): bf16 at rtol 1e-2 / atol 1e-2 (about one bf16 ulp at the
+    output's scale), fp32 at rtol 1e-4 / atol 1e-5; then the autograd
+    function's dx (B5 on the flipped weights) and dW against autograd of
+    F.conv2d in fp32.  Returns the max abs error per dtype."""
+    from torch.nn import functional as F
+
+    from multimodal_learning_tpu_torch.ops import paired_conv as pc
+    errs = {}
+    for shape in CONV_SHAPES:
+        for dtype, tol in ((torch.bfloat16, dict(rtol=1e-2, atol=1e-2)),
+                           (torch.float32, dict(rtol=1e-4, atol=1e-5))):
+            x, w = _conv_inputs(shape, gen, dev, dtype)
+            with torch.inference_mode():
+                got = pc.conv3x3(x, w).float()
+                want = pc.conv3x3_plain(x.float(), w.float())
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            torch.testing.assert_close(got, want, **tol,
+                                       msg=f"conv3x3 {shape} {dtype}")
+            errs[dtype] = max(errs.get(dtype, 0.0), err)
+            print(f"conv3x3 {shape} {dtype} max_abs_err={err:.3e} "
+                  f"(rtol {tol['rtol']}, atol {tol['atol']}; {card})")
+    for shape in ((2, 16, 16, 64), (3, 37, 50, 64)):
+        x, w = (t.requires_grad_() for t in _conv_inputs(
+            shape, gen, dev, torch.float32))
+        g = torch.randn(shape[0], 64, shape[1], shape[2], generator=gen).to(
+            dev)
+        got = torch.autograd.grad(pc.paired_conv3x3(x, w), (x, w), g)
+        want = torch.autograd.grad(F.conv2d(x, w, padding=1), (x, w), g)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5,
+                                   msg=f"paired_conv3x3 dx {shape}")
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4,
+                                   msg=f"paired_conv3x3 dW {shape}")
+        print(f"paired_conv3x3 {shape} fp32: dx max_abs_err="
+              f"{(got[0] - want[0]).abs().max().item():.3e}, dW "
+              f"{(got[1] - want[1]).abs().max().item():.3e} ({card})")
+    return errs
+
+
+# The JAX benchmark's flagship train step (``bench.py:196-202``): pofusion
+# teacher at the paper width, CRD + pred-KD, bf16 encoders.
+TRAIN_CONFIG = dict(mode="pathomic", task="grad", path_dim=128, omic_dim=128,
+                    mmhid=128, feat_dim=128, input_size_path=512,
+                    batch_size=16, CRD_distill=1, pred_distill=1,
+                    num_teachers=2, pos_mode="exact", nce_p=1, nce_k=512,
+                    n_data=256, reg_type="omic", niter_decay=30,
+                    dropout_rate=0.1, compute_dtype="bfloat16",
+                    pallas_fusion="train")
+
+
 def _train_opt(Options, **kw):
-    """The JAX benchmark's flagship train step (``bench.py:196-202``):
-    pofusion teacher at the paper width, CRD + pred-KD, bf16 encoders."""
-    base = dict(mode="pathomic", task="grad", path_dim=128, omic_dim=128,
-                mmhid=128, feat_dim=128, input_size_path=512,
-                batch_size=16, CRD_distill=1, pred_distill=1,
-                num_teachers=2, pos_mode="exact", nce_p=1, nce_k=512,
-                n_data=256, reg_type="omic", niter_decay=30,
-                dropout_rate=0.1, compute_dtype="bfloat16",
-                pallas_fusion="train")
-    base.update(kw)
-    return Options(**base)
+    return Options(**{**TRAIN_CONFIG, **kw})
 
 
 def _train_batch(opt, gen, dev):
@@ -217,9 +288,10 @@ def _train_batch(opt, gen, dev):
     return {k: v.to(dev) for k, v in batch.items()}
 
 
-def _profile_steps(step_fn, card, n, top=8):
+def _profile_steps(step_fn, card, n, top=8, label="train"):
     """Kernel time per train step by name (torch.profiler, CUDA activity)
-    and the device's busy share of the same steps' span (CUDA events)."""
+    and the device's busy share of the same steps' span (CUDA events); also
+    the share of B5's kernels (names holding "conv3x3")."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -233,31 +305,40 @@ def _profile_steps(step_fn, card, n, top=8):
     events = prof.key_averages()
     dev_ms = sum(ev.self_device_time_total for ev in events) / n / 1e3
     if dev_ms == 0:
-        print("profile train: the profiler saw no device time; kernel "
+        print(f"profile {label}: the profiler saw no device time; kernel "
               f"breakdown not measured ({card})")
         return
-    print(f"profile train: {dev_ms:.3f} ms of kernels per step, device busy "
-          f"{100 * dev_ms / span_ms:.1f}% of the same steps' {span_ms:.3f} "
-          f"ms span ({n} steps; {card})")
+    print(f"profile {label}: {dev_ms:.3f} ms of kernels per step, device "
+          f"busy {100 * dev_ms / span_ms:.1f}% of the same steps' "
+          f"{span_ms:.3f} ms span ({n} steps; {card})")
+    b5_ms = sum(ev.self_device_time_total for ev in events
+                if "conv3x3" in ev.key) / n / 1e3
+    print(f"profile {label}: B5 (conv3x3) {b5_ms:.4f} ms per step, "
+          f"{100 * b5_ms / dev_ms:.2f}% of kernel time ({card})")
     for ev in sorted(events, key=lambda ev: -ev.self_device_time_total)[:top]:
         ms = ev.self_device_time_total / n / 1e3
         print(f"  {100 * ms / dev_ms:5.1f}% {ms:.4f} ms x{ev.count // n} "
               f"{ev.key[:90]}")
 
 
-def _train_path(card, gen, dev, n_steps=20, n_warm=3, n_prof=3):
+def _train_path(card, gen, dev, n_steps=20, n_warm=3, n_prof=3,
+                paired=False):
     """The teacher's train path at full width through the entry points a
     user calls: ``init_teacher_state`` from seed 2019, then
-    ``build_teacher_train_step`` on a device-resident batch.  Returns the
-    state, the batch and B1's launches in the timed steps."""
+    ``build_teacher_train_step`` on a device-resident batch; with
+    ``paired`` under ``--paired_conv True``.  B1 must launch twice per
+    step, B5 12 times per step when paired and never otherwise.  Returns
+    the state, the batch, the launches in the timed steps and the step as
+    a function of nothing."""
     from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.models import define_model
     from multimodal_learning_tpu_torch.ops import kron_fusion as kf
+    from multimodal_learning_tpu_torch.ops import paired_conv as pc
     from multimodal_learning_tpu_torch.train import make_lr_schedule
     from multimodal_learning_tpu_torch.train.steps import (
         build_teacher_train_step, init_teacher_state)
 
-    opt = _train_opt(Options)
+    opt = _train_opt(Options, paired_conv=paired)
     state = init_teacher_state(
         opt, define_model(opt, generator=torch.Generator().manual_seed(SEED)),
         make_lr_schedule(opt, steps_per_epoch=50), opt.n_data, seed=SEED)
@@ -266,23 +347,32 @@ def _train_path(card, gen, dev, n_steps=20, n_warm=3, n_prof=3):
     for _ in range(n_warm):
         train_step(state, batch, 0.1)
     torch.cuda.synchronize()
-    launches = {"kron_matmul_dropout": 0, "kron_matmul": 0,
-                "kron_bwd_dw": 0, "kron_bwd_dvec": 0}
-    for name in launches:
-        getattr(kf, name).launches = 0
+    counters = {"kron_matmul_dropout": kf.kron_matmul_dropout,
+                "kron_matmul": kf.kron_matmul, "kron_bwd_dw": kf.kron_bwd_dw,
+                "kron_bwd_dvec": kf.kron_bwd_dvec, "conv3x3": pc.conv3x3}
+    for fn in counters.values():
+        fn.launches = 0
+    pc.paired_conv3x3.grad_copies = 0
     history = []
     t0 = time.perf_counter()
     for _ in range(n_steps):
         history.append(train_step(state, batch, 0.1)[1])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    for name in launches:
-        launches[name] = getattr(kf, name).launches
-    print(f"train path: {n_steps} steps, launches {launches} ({card})")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    label = "train path (paired_conv)" if paired else "train path"
+    print(f"{label}: {n_steps} steps, launches {launches}, incoming "
+          "gradients made channels-last by a copy: "
+          f"{pc.paired_conv3x3.grad_copies} ({card})")
     if launches["kron_matmul_dropout"] != 2 * n_steps:
         raise RuntimeError(
             f"B1 ran {launches['kron_matmul_dropout']} times in {n_steps} "
             "steps; the student and the EMA forward launch it once each")
+    if launches["conv3x3"] != (12 * n_steps if paired else 0):
+        raise RuntimeError(
+            f"B5 ran {launches['conv3x3']} times in {n_steps} steps with "
+            f"paired_conv={paired}; a paired step launches it 12 times (4 "
+            "forwards of the student, 4 of the EMA, 4 data gradients)")
     for metrics in history:
         for k, v in metrics.items():
             if not torch.isfinite(v).all():
@@ -290,12 +380,36 @@ def _train_path(card, gen, dev, n_steps=20, n_warm=3, n_prof=3):
     print("train metrics, last step:", {k: round(float(v), 5)
                                         for k, v in history[-1].items()},
           f"({card})")
-    print(f"timing train: {opt.batch_size * n_steps / dt:.1f} patches/s "
+    print(f"timing {label}: {opt.batch_size * n_steps / dt:.1f} patches/s "
           f"({1e3 * dt / n_steps:.3f} ms per step of {opt.batch_size}, bf16, "
           f"512^2, 2 views, CRD nce_k {opt.nce_k}, device-resident batch; "
           f"{card})")
-    _profile_steps(lambda: train_step(state, batch, 0.1), card, n_prof)
-    return state, batch, launches["kron_matmul_dropout"]
+    def step():
+        return train_step(state, batch, 0.1)
+
+    _profile_steps(step, card, n_prof, label=label)
+    return state, batch, launches, step
+
+
+def _ab_steps(card, steps, n=10):
+    """Host time per train step of two variants in turns (a, b, b, a), n
+    steps a window, each window ending in a synchronise: the two compared
+    inside one call, as the spread between calls is larger than the
+    difference."""
+    (name_a, a), (name_b, b) = steps
+    for fn in (a, b):
+        fn()
+    torch.cuda.synchronize()
+    ms = {name_a: [], name_b: []}
+    for name, fn in ((name_a, a), (name_b, b), (name_b, b), (name_a, a)):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        ms[name].append(1e3 * (time.perf_counter() - t0) / n)
+    print("timing train step in turns (ms per step of 16, windows of "
+          f"{n}): " + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}"
+                                for k, v in ms.items()) + f" ({card})")
 
 
 def _train_cross_check(card, gen, dev, batch_size=4):
@@ -471,6 +585,123 @@ def _time_train_kernels(gen, dev, card, flush):
     return out
 
 
+def _cv_drivers(card, n_train=64, n_test=32, epochs=2):
+    """Phase 12: ``cli.train_cv_MT`` then ``cli.test_cv_MT`` as a user runs
+    them, at the flagship step's flags plus ``--paired_conv True
+    --synthetic_data --synthetic_folds 1``, in a temporary checkpoint
+    directory.  Checks each kernel's launches against the run's steps and
+    eval forwards, and that test_cv_MT reproduces the final eval exactly
+    (metrics and every probability).  Returns the launches of both
+    drivers together."""
+    from multimodal_learning_tpu_torch.cli import test_cv_MT, train_cv_MT
+    from multimodal_learning_tpu_torch.eval import load_pred_test
+    from multimodal_learning_tpu_torch.ops import kron_fusion as kf
+    from multimodal_learning_tpu_torch.ops import paired_conv as pc
+
+    bs = TRAIN_CONFIG["batch_size"]
+    steps, forwards = epochs * (n_train // bs), -(-n_test // bs)
+    counters = {"conv3x3": pc.conv3x3, "kron_train_fwd":
+                kf.kron_matmul_dropout, "kron_fwd": kf.kron_matmul}
+    cfg = {**TRAIN_CONFIG, "niter_decay": epochs, "paired_conv": True,
+           "synthetic_data": True, "synthetic_folds": 1,
+           "model_name": "smoke_cv"}
+    total = dict.fromkeys(counters, 0)
+
+    def run(main, flags, want, what):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = main(flags)
+        torch.cuda.synchronize()
+        got = {name: fn.launches for name, fn in counters.items()}
+        print(f"cv drivers: {what} in {time.perf_counter() - t0:.2f} s, "
+              f"launches {got} ({card})")
+        if got != want:
+            raise RuntimeError(f"{what} launched {got}, expected {want}")
+        for name in total:
+            total[name] += got[name]
+        return out
+
+    with tempfile.TemporaryDirectory() as root:
+        flags = [a for k, v in cfg.items() for a in (f"--{k}", str(v))]
+        flags += ["--checkpoints_dir", root]
+        res = run(train_cv_MT.main, flags,
+                  {"conv3x3": 12 * steps + 4 * epochs * forwards,
+                   "kron_train_fwd": 2 * steps,
+                   "kron_fwd": epochs * forwards},
+                  f"train_cv_MT ({steps} steps, {epochs} evals of {n_test} "
+                  "ROIs)")[1]
+        ckpt_dir = os.path.join(root, "grad_15", cfg["model_name"])
+        with open(os.path.join(ckpt_dir, "metrics.jsonl")) as fh:
+            for line in fh:
+                rec = json.loads(line)
+                print(f"cv drivers: epoch {rec['epoch']} train "
+                      f"{rec['samples_per_s']:.1f} patches/s through the "
+                      f"loader and prefetcher, loss {rec['train_loss']:.5f}"
+                      f" ({card})")
+        tested = run(test_cv_MT.main, flags,
+                     {"conv3x3": 4 * forwards, "kron_train_fwd": 0,
+                      "kron_fwd": forwards}, "test_cv_MT")
+        dumped = load_pred_test(os.path.join(
+            ckpt_dir, f"{cfg['model_name']}_1_pred_test.pkl"))
+    for name in ("fuse", "path", "omic"):
+        if tested[name] != [res[f"metrics_{name}"]]:
+            raise RuntimeError(f"test_cv_MT's {name} metrics "
+                               f"{tested[name]} differ from the training-"
+                               f"time final eval {res[f'metrics_{name}']}")
+        if not np.array_equal(dumped["probs"][name], res["probs"][name]):
+            raise RuntimeError(f"test_cv_MT's {name} probabilities differ "
+                               "from the training-time final eval")
+        if not np.isfinite(res["probs"][name]).all():
+            raise RuntimeError(f"{name} probabilities are not finite")
+    print("cv drivers: test_cv_MT reproduces the final eval exactly; AUC/AP/"
+          "F1/F1-IV", {k: [round(float(v), 5) for v in res[f"metrics_{k}"]]
+                       for k in ("fuse", "path", "omic")}, f"({card})")
+    return total
+
+
+def _time_conv(gen, dev, card, flush):
+    """B5, its plain version and ``F.conv2d`` (the one PyTorch call that
+    computes the same function; the plain version is that call too) at
+    stage 1 of the 512^2 trunk, bf16 (the train and serving paths) and
+    fp32; the bound from x and y once each plus W, and the convolution's
+    operations at the dtype's peak.  Returns {dtype: (times, bound_ms,
+    bound_by)}."""
+    from torch.nn import functional as F
+
+    from multimodal_learning_tpu_torch.ops import paired_conv as pc
+    b, h, w, c = CONV_SHAPES[0]
+    out = {}
+    for dtype, peak, what in ((torch.bfloat16, H100_BF16_FLOP_PER_S,
+                               "989 TFLOP/s bf16"),
+                              (torch.float32, H100_FP32_FLOP_PER_S,
+                               "67 TFLOP/s fp32")):
+        x, wt = _conv_inputs(CONV_SHAPES[0], gen, dev, dtype)
+        fns = {"kernel": lambda: pc.conv3x3(x, wt),
+               "plain": lambda: pc.conv3x3_plain(x, wt),
+               "library": lambda: F.conv2d(x, wt, padding=1)}
+        times = {}
+        with torch.inference_mode():
+            for which, fn in fns.items():
+                for cold in (False, True):
+                    times[which, cold] = _time_ms(fn, 50, cold, flush)
+        nbytes = x.element_size() * (2 * b * h * w * c + c * c * 9)
+        flops = 2 * b * h * w * 9 * c * c
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
+        bound_ms = 1e3 * max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        for which in fns:
+            print(f"timing conv3x3 {dtype} {which}_ms: L2-cold "
+                  f"{times[which, True]:.5f} L2-warm "
+                  f"{times[which, False]:.5f} ((B, H, W, C)={CONV_SHAPES[0]},"
+                  f" channels-last; {card})")
+        print(f"timing conv3x3 {dtype} bound_ms={bound_ms:.5f} by {bound_by}:"
+              f" {nbytes} bytes at 3.35 TB/s, {flops} flop at {what} "
+              f"({card})")
+        out[dtype] = (times, bound_ms, bound_by)
+    return out
+
+
 def _write_inputs(root, size, d_omic, gen):
     from PIL import Image
     img_dir = os.path.join(root, "rois")
@@ -529,7 +760,9 @@ def main() -> int:
         print(f"kron_fwd {shape} max_abs_err={err:.3e} (rtol 1e-4, "
               f"atol 1e-5; {card})")
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions
+    torch.backends.cudnn.allow_tf32 = False
     train_errs = _check_train_kernels(gen, dev, card)
+    conv_errs = _check_conv_kernel(gen, dev, card)
 
     # 4. the serving path end to end at the teacher's full width
     # (recipes/baseline.py "teacher" in the JAX package)
@@ -587,8 +820,6 @@ def main() -> int:
 
     # 5. fp32 cross-check: the card (kernel path, no TF32) against the CPU
     # (plain path), tolerance of tests/test_torch_import.py
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     opt32 = opt.replace(compute_dtype="float32")
     outs = {}
     for where in ("cuda", "cpu"):
@@ -657,14 +888,24 @@ def main() -> int:
     del infer, xb, ob
 
     # 7. the teacher's train path at full width, and 8. the saliency pass
-    state, tbatch, b1_launches = _train_path(card, gen, dev)
+    state, tbatch, train_launches, step = _train_path(card, gen, dev)
+    b1_launches = train_launches["kron_matmul_dropout"]
     b3_launches, b4_launches = _saliency_pass(state, tbatch, card)
-    del state, tbatch
-    torch.cuda.empty_cache()
     # 9. one fp32 train step, card against CPU
     _train_cross_check(card, gen, dev)
     # 10. the train kernels' timing
     ttimes = _time_train_kernels(gen, dev, card, flush)
+    # 11. the train step under --paired_conv (B5 on the path), then both
+    # steps in turns
+    paired = _train_path(card, gen, dev, paired=True)
+    _ab_steps(card, (("paired_conv off", step), ("paired_conv on",
+                                                 paired[3])))
+    del state, tbatch, step, paired
+    torch.cuda.empty_cache()
+    # 12. the CV drivers at full width under --paired_conv
+    cv_launches = _cv_drivers(card)
+    # 13. B5's timing
+    ctimes = _time_conv(gen, dev, card, flush)
 
     kernels = [{
         "name": "kron_fwd", "route": "cuda",
@@ -688,6 +929,15 @@ def main() -> int:
             "max_abs_err": train_errs[name], "ms": t["kernel", True],
             "plain_ms": t["plain", True], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": t.get(("library", True))})
+    t, bound_ms, bound_by = ctimes[torch.bfloat16]
+    kernels.append({
+        "name": "conv3x3", "route": "cuda",
+        "source": "multimodal_learning_tpu_torch/ops/csrc/conv3x3.cu",
+        "replaces": "tools/pallas_conv_proto.py:54",
+        "launches": cv_launches["conv3x3"],
+        "max_abs_err": max(conv_errs.values()), "ms": t["kernel", True],
+        "plain_ms": t["plain", True], "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": t["library", True]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,22 +7,29 @@ each Pallas TPU kernel with a CUDA kernel written for Hopper (``sm_90a``),
 keeping a plain PyTorch version of each kernel beside it for the CPU and as
 the test oracle.
 
-Ported so far (the pofusion teacher's serving path and train step):
+Ported so far (the pofusion teacher's serving path, train step and CV
+drivers):
 
 - ``config``    the ``Options`` flag surface (own copy)
-- ``models``    ResNet18, MaxNet, BilinearFusion, PathomicModel, and the
-                weight bridge to and from the JAX package's flax trees
+- ``models``    ResNet18 (with ``--paired_conv``), MaxNet, BilinearFusion,
+                PathomicModel, and the weight bridge to and from the JAX
+                package's flax trees
 - ``ops``       the Kronecker-fusion kernels: eval forward
                 (``csrc/kron_fusion.cu``), its backward (``csrc/kron_bwd.cu``)
-                and the masked train forward (``csrc/kron_train.cu``)
-- ``data``      on-device augmentation
+                and the masked train forward (``csrc/kron_train.cu``); the
+                stage-1 3x3 convolution (``csrc/conv3x3.cu``)
+- ``data``      CV splits, contrast sampling, the host loaders with device
+                prefetch, the native JPEG decoder, on-device augmentation
 - ``losses``    NLL, Cox, L1, pred-KD, DistillKL, SP, orth
 - ``contrast``  the classic CRD memory bank and NCE loss
-- ``train``     the teacher's train and eval steps, Adam and the LR
-                schedules, EMA, and the train-state bridge to the JAX package
-- ``utils``     fold checkpoints in the JAX package's pickle layout
+- ``train``     the teacher's train and eval steps, the fold loop, Adam and
+                the LR schedules (plateau included), EMA, and the
+                train-state bridge to the JAX package
+- ``eval``      grading and survival metrics (numpy/scipy), prediction dumps
+- ``utils``     fold checkpoints in the JAX package's pickle layout,
+                train-state snapshots, the JSONL metrics log
 - ``serve``     the eval forward and its ``torch.save`` artifact
-- ``cli``       ``export_model`` and ``predict``
+- ``cli``       ``train_cv_MT``, ``test_cv_MT``, ``export_model``, ``predict``
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -4,8 +4,10 @@ The port's own copy of ``multimodal_learning_tpu/config/options.py``: the
 same fields, defaults and argparse shim, so one flag line drives either
 package and a checkpoint's saved ``opt`` dict rebuilds the same model here.
 ``pallas_fusion`` routes the pofusion Kronecker contraction to the CUDA
-kernels (``ops/kron_fusion.py``); ``paired_conv`` is accepted and runs the
-ordinary convolution, of which it is an exact reformulation.
+kernels (``ops/kron_fusion.py``); ``paired_conv`` routes the 3x3
+convolutions of the ResNet's 64-channel stage to the CUDA kernel of
+``ops/paired_conv.py`` (the same function and parameters; the stem stays
+the ordinary convolution).
 
 This is the union of the four reference CLI surfaces:
 - ``MICCAI-2022/options.py:8-164``
@@ -208,13 +210,12 @@ class Options:
     #                                        through the fused CUDA kernels
     #                                        (ops/kron_fusion.py); "train"
     #                                        also selects the masked-dropout
-    #                                        train kernel, which is not
-    #                                        ported yet (training raises)
-    paired_conv: bool = False              # lane-paired ResNet convs in the
-    #                                        JAX package: an exact
-    #                                        reformulation, so the port
-    #                                        accepts it and runs the ordinary
-    #                                        convolution
+    #                                        train kernel
+    paired_conv: bool = False              # the 64-channel stage's 3x3
+    #                                        convs through the CUDA kernel
+    #                                        of ops/paired_conv.py (lane-
+    #                                        paired convs in the JAX
+    #                                        package; the same function)
     host_workers: int = 4                  # decode threads (ref num_workers=4)
     prefetch_depth: int = 2                # device prefetch buffers
     pretrained_path: str = ""              # path to converted ResNet18 weights

@@ -26,7 +26,8 @@ def define_model(opt, path_only: bool = False, omic_only: bool = False,
     if opt.mode == "path" or (opt.mode == "pathomic" and path_only):
         return ResNet18(path_dim=opt.path_dim, num_classes=opt.label_dim,
                         act_type=opt.act_type, dtype=_dtype(opt),
-                        generator=generator)
+                        generator=generator,
+                        paired=getattr(opt, "paired_conv", False))
     if opt.mode == "omic" or (opt.mode == "pathomic" and omic_only):
         return MaxNet(input_dim=opt.input_size_omic, omic_dim=opt.omic_dim,
                       dropout_rate=opt.dropout_rate, act_type=opt.act_type,
@@ -44,5 +45,6 @@ def define_model(opt, path_only: bool = False, omic_only: bool = False,
             omic_scale=opt.omic_scale, cut_fuse_grad=opt.cut_fuse_grad,
             init_max=(opt.init_type == "max"), dtype=_dtype(opt),
             pallas_fusion=getattr(opt, "pallas_fusion", "off"),
+            paired_conv=getattr(opt, "paired_conv", False),
             generator=generator)
     raise NotImplementedError(f"mode [{opt.mode}] is not implemented")

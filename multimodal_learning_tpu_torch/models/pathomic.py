@@ -72,14 +72,14 @@ class PathomicModel(nn.Module):
                  omic_gate: int = 1, path_scale: int = 1, omic_scale: int = 1,
                  cut_fuse_grad: bool = False, init_max: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 pallas_fusion: str = "off",
+                 pallas_fusion: str = "off", paired_conv: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.act_type = act_type
         self.cut_fuse_grad = cut_fuse_grad
         self.path_net = ResNet18(path_dim=path_dim, num_classes=label_dim,
                                  act_type=act_type, dtype=dtype,
-                                 generator=generator)
+                                 generator=generator, paired=paired_conv)
         self.omic_net = MaxNet(input_dim=input_size_omic, omic_dim=omic_dim,
                                dropout_rate=dropout_rate, act_type=act_type,
                                label_dim=label_dim, init_max=init_max,

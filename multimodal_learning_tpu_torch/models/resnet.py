@@ -11,6 +11,13 @@ The public input is NHWC, as in the JAX module; the trunk runs NCHW (the
 permute of a contiguous NHWC tensor is a channels-last view, no copy).
 flax BatchNorm ``momentum=0.9`` is torch ``momentum=0.1``; eps is 1e-5 in
 both.
+
+``paired=True`` (``--paired_conv``) computes the 3x3 convolutions of the
+64-channel stage with ``ops/paired_conv.py:PairedConv3x3`` (kernel B5 on
+the card) by the JAX rule (``resnet.py:99-111``): ``conv1`` at stride 1
+and ``conv2`` of every block with 64 planes whose input width is even.  The
+parameters and their ``state_dict`` keys do not change.  The stem stays the
+ordinary convolution (see that module).
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops.paired_conv import PairedConv3x3
 from .common import (BatchNorm1d, BatchNorm2d, apply_act, autocast,
                      init_linear_, kaiming_normal_out_)
 
@@ -33,11 +41,15 @@ class BasicBlock(nn.Module):
     """3x3 + 3x3 residual block (``resnets.py:37-74``)."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 paired: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 3, stride, 1, generator)
+        pair = paired and planes == 64
+        self.conv1 = (PairedConv3x3(dtype, generator) if pair and stride == 1
+                      else _conv(inplanes, planes, 3, stride, 1, generator))
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = _conv(planes, planes, 3, 1, 1, generator)
+        self.conv2 = (PairedConv3x3(dtype, generator) if pair
+                      else _conv(planes, planes, 3, 1, 1, generator))
         self.bn2 = BatchNorm2d(planes)
         self.downsample = None
         if stride != 1 or inplanes != planes:
@@ -66,7 +78,8 @@ class ResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  path_dim: int = 32, num_classes: int = 3,
                  act_type: str = "LSM", dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 paired: bool = False):
         super().__init__()
         self.act_type = act_type
         self.dtype = dtype
@@ -79,7 +92,8 @@ class ResNet(nn.Module):
             blocks = []
             for j in range(n_blocks):
                 stride = 2 if (i > 0 and j == 0) else 1
-                blocks.append(BasicBlock(inplanes, planes, stride, generator))
+                blocks.append(BasicBlock(inplanes, planes, stride, generator,
+                                         paired, dtype))
                 inplanes = planes
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
         self.fc_new1 = nn.Sequential(
@@ -104,7 +118,8 @@ class ResNet(nn.Module):
 
 
 def ResNet18(path_dim=32, num_classes=3, act_type="LSM",
-             dtype=torch.float32, generator=None):
+             dtype=torch.float32, generator=None, paired=False):
     """reference ``resnets.py:287-295``."""
     return ResNet((2, 2, 2, 2), path_dim=path_dim, num_classes=num_classes,
-                  act_type=act_type, dtype=dtype, generator=generator)
+                  act_type=act_type, dtype=dtype, generator=generator,
+                  paired=paired)

@@ -6,7 +6,9 @@ Port of ``multimodal_learning_tpu/train/optim.py`` (reference
 ``torch.optim.Adam(weight_decay=wd, eps=1e-8)``: L2 decay added to the
 gradient before the moments, not decoupled.  The LR is set before each
 update from ``lr_schedule(count)``, ``count`` the updates before this one,
-as optax counts.
+as optax counts.  ``--lr_policy plateau`` scales that LR by ``lr_scale``,
+which the train loop sets from ``schedules.PlateauTracker`` after each
+epoch's eval, as the JAX chain's injected ``lr_scale`` does.
 """
 from __future__ import annotations
 
@@ -17,20 +19,22 @@ import torch
 
 class ScheduledOptimizer:
     """A torch optimizer whose LR follows ``lr_schedule`` of the update
-    count.  Parameters without a gradient get a zero one, so the L2 decay
-    still moves them, as the JAX chain does."""
+    count, times ``lr_scale`` (the plateau scale, 1 otherwise).  Parameters
+    without a gradient get a zero one, so the L2 decay still moves them, as
+    the JAX chain does."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  lr_schedule: Callable[[int], float]):
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
         self.count = 0
+        self.lr_scale = 1.0
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        lr = float(self.lr_schedule(self.count))
+        lr = float(self.lr_schedule(self.count)) * self.lr_scale
         for group in self.optimizer.param_groups:
             group["lr"] = lr
             for p in group["params"]:

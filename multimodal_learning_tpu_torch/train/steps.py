@@ -118,7 +118,7 @@ def _refuse_unported(opt, masking: bool = False) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
-def _resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> torch.device:
     """CUDA unless the caller names a device; no silent CPU fallback."""
     if device is not None:
         return torch.device(device)
@@ -137,7 +137,7 @@ def init_teacher_state(opt, model: nn.Module, lr_schedule, n_data: int,
     Kronecker dropout masks.  ``--global_step`` seeds the step counter
     (reference ``iter_num``, ``train_test_MT.py:104``)."""
     _refuse_unported(opt)
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     if opt.init_type not in ("max", "none", "normal_default"):
         raise NotImplementedError(
             f"--init_type {opt.init_type} (the post-init re-initialisation) "

@@ -11,13 +11,21 @@ and a checkpoint the port writes is read by the JAX package.
 The unpickler refuses classes of jax, flax and optax: a JAX-written entry
 holding a jax array (for example ``metrics``) fails loudly instead of
 importing jax or loading half a checkpoint.
+
+Mid-fold snapshots for ``--resume``/``--snapshot_every``
+(``save_train_state``/``load_train_state``) are the port's own format, a
+``torch.save`` of the whole train state: the model and the EMA model, the
+CRD heads, the optimizer with its update count and plateau scale, the CRD
+banks, the device generator's state, the epoch and an ``extra`` dict.  The
+JAX package's snapshots (flax serialisation) and the port's do not read
+each other.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import pickle
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,3 +73,42 @@ class _Unpickler(pickle.Unpickler):
 def load_checkpoint(path: str) -> Dict[str, Any]:
     with open(path, "rb") as fh:
         return _Unpickler(fh).load()
+
+
+def save_train_state(path: str, state, epoch: int,
+                     extra: Optional[Dict] = None) -> None:
+    """Snapshot a port ``TrainState`` after ``epoch``, written to a
+    temporary name and renamed into place."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    opt = state.optimizer
+    payload = {
+        "epoch": epoch, "step": state.step,
+        "model": state.model.state_dict(),
+        "ema_model": state.ema_model.state_dict(),
+        "embeds": state.embeds.state_dict(),
+        "optimizer": opt.optimizer.state_dict(), "count": opt.count,
+        "lr_scale": opt.lr_scale,
+        "banks": {k: dataclasses.asdict(b) for k, b in state.banks.items()},
+        "generator": state.generator.get_state(), "extra": extra}
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def load_train_state(path: str, state) -> Tuple[int, Optional[Dict]]:
+    """Restore a snapshot into ``state`` (from ``init_teacher_state`` with
+    the same options), in place.  Returns ``(epoch, extra)``."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    state.model.load_state_dict(payload["model"])
+    state.ema_model.load_state_dict(payload["ema_model"])
+    state.embeds.load_state_dict(payload["embeds"])
+    state.optimizer.optimizer.load_state_dict(payload["optimizer"])
+    state.optimizer.count = payload["count"]
+    state.optimizer.lr_scale = payload["lr_scale"]
+    dev = state.device
+    for name, bank in payload["banks"].items():
+        for k, v in bank.items():
+            getattr(state.banks[name], k).copy_(v.to(dev))
+    state.generator.set_state(payload["generator"])
+    state.step = payload["step"]
+    return payload["epoch"], payload["extra"]

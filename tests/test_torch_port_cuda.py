@@ -8,12 +8,16 @@ is left out:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerance: rtol 1e-4 / atol 1e-5, the JAX Pallas tests' (both sides fp32;
-the kernels sum in another order than the plain versions).
+the kernels sum in another order than the plain versions).  The bf16 3x3
+convolution (B5) is held at rtol 1e-2 / atol 1e-2, about one bf16 ulp at
+its output's scale, against the fp32 convolution of the same bf16 inputs;
+TF32 is off, so the fp32 oracles are IEEE fp32.
 """
 import pytest
 import torch
+from torch.nn import functional as F
 
-from multimodal_learning_tpu_torch.ops import kron_fusion
+from multimodal_learning_tpu_torch.ops import kron_fusion, paired_conv
 
 SHAPES = [(16, 129, 129, 128), (1, 129, 129, 128), (37, 129, 129, 128),
           (4, 9, 9, 16), (3, 200, 170, 33)]
@@ -25,6 +29,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -128,3 +133,84 @@ def test_kron_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         kron_fusion.kron_matmul_dropout(o1, o2, w, b, _mask(4, 80, cuda))
     with pytest.raises(ValueError, match="on cpu"):
         kron_fusion.kron_matmul_dropout(o1, o2, w, b, _mask(4, 81, "cpu"))
+
+
+CONV_SHAPES = [(16, 128, 128, 64), (1, 128, 128, 64), (3, 37, 50, 64),
+               (2, 8, 8, 64)]
+
+
+def _conv_inputs(shape, dev, dtype, seed=0):
+    """x [B, 64, H, W] channels-last (an NHWC tensor permuted) and W at the
+    stage's kaiming init."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(*shape, generator=g).to(dev, dtype).permute(0, 3, 1, 2)
+    w = (torch.randn(64, 64, 3, 3, generator=g) * (2 / 576) ** 0.5).to(
+        dev, dtype)
+    return x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv3x3_kernel_matches_plain(cuda, shape, dtype):
+    x, w = _conv_inputs(shape, cuda, dtype)
+    before = paired_conv.conv3x3.launches
+    got = paired_conv.conv3x3(x, w)
+    torch.cuda.synchronize()
+    assert paired_conv.conv3x3.launches == before + 1
+    assert got.dtype == dtype and got.is_contiguous(
+        memory_format=torch.channels_last)
+    want = paired_conv.conv3x3_plain(x.float(), w.float())
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got.float(), want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (3, 37, 50, 64)])
+def test_paired_conv3x3_grads_match_autograd(cuda, shape):
+    """Forward and data gradient through B5 (two launches), weight gradient
+    through conv2d_weight, against autograd of F.conv2d, fp32."""
+    x, w = (t.requires_grad_() for t in _conv_inputs(shape, cuda,
+                                                      torch.float32, 1))
+    g = torch.randn(shape[0], 64, shape[1], shape[2], device=cuda)
+    before = paired_conv.conv3x3.launches
+    got = torch.autograd.grad(paired_conv.paired_conv3x3(x, w), (x, w), g)
+    torch.cuda.synchronize()
+    assert paired_conv.conv3x3.launches == before + 2
+    want = torch.autograd.grad(F.conv2d(x, w, padding=1), (x, w), g)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_paired_resnet18_launches_b5(cuda):
+    """4 launches per forward (the 64-channel stage) and 4 more in the
+    backward (the data gradients); none without pairing."""
+    from multimodal_learning_tpu_torch.models import ResNet18
+    x = torch.randn(2, 64, 64, 3, device=cuda)
+    for paired, fwd, bwd in ((True, 4, 4), (False, 0, 0)):
+        model = ResNet18(path_dim=8, dtype=torch.bfloat16,
+                         paired=paired).to(cuda)
+        before = paired_conv.conv3x3.launches
+        with torch.no_grad():
+            model.eval()(x)
+        assert paired_conv.conv3x3.launches == before + fwd
+        model.train()(x)[2].sum().backward()
+        torch.cuda.synchronize()
+        assert paired_conv.conv3x3.launches == before + 2 * fwd + bwd
+
+
+@pytest.mark.cuda
+def test_conv3x3_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, w = _conv_inputs((2, 8, 8, 64), cuda, torch.float32)
+    with pytest.raises(TypeError, match="float32"):
+        paired_conv.conv3x3(x.double(), w.double())
+    with pytest.raises(TypeError, match="bfloat16"):
+        paired_conv.conv3x3(x, w.bfloat16())
+    with pytest.raises(ValueError, match="channels-last"):
+        paired_conv.conv3x3(x.contiguous(), w)
+    with pytest.raises(ValueError, match="shapes"):
+        paired_conv.conv3x3(x[:, :32].contiguous(
+            memory_format=torch.channels_last), w[:32, :32].contiguous())
+    with pytest.raises(ValueError, match="on cpu"):
+        paired_conv.conv3x3(x, w.cpu())

@@ -196,16 +196,27 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.ops",
     "multimodal_learning_tpu_torch.ops._build",
     "multimodal_learning_tpu_torch.ops.kron_fusion",
+    "multimodal_learning_tpu_torch.ops.paired_conv",
     "multimodal_learning_tpu_torch.utils",
     "multimodal_learning_tpu_torch.utils.checkpoint",
+    "multimodal_learning_tpu_torch.utils.logging",
     "multimodal_learning_tpu_torch.serve",
     "multimodal_learning_tpu_torch.serve.export",
     "multimodal_learning_tpu_torch.cli",
     "multimodal_learning_tpu_torch.cli._platform",
     "multimodal_learning_tpu_torch.cli.export_model",
     "multimodal_learning_tpu_torch.cli.predict",
+    "multimodal_learning_tpu_torch.cli.train_cv_MT",
+    "multimodal_learning_tpu_torch.cli.test_cv_MT",
     "multimodal_learning_tpu_torch.data",
     "multimodal_learning_tpu_torch.data.augment",
+    "multimodal_learning_tpu_torch.data.splits",
+    "multimodal_learning_tpu_torch.data.sampling",
+    "multimodal_learning_tpu_torch.data.native_loader",
+    "multimodal_learning_tpu_torch.data.pipeline",
+    "multimodal_learning_tpu_torch.eval",
+    "multimodal_learning_tpu_torch.eval.metrics",
+    "multimodal_learning_tpu_torch.eval.analysis",
     "multimodal_learning_tpu_torch.losses",
     "multimodal_learning_tpu_torch.losses.task",
     "multimodal_learning_tpu_torch.losses.kd",
@@ -219,13 +230,15 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.train.schedules",
     "multimodal_learning_tpu_torch.train.steps",
     "multimodal_learning_tpu_torch.train.import_state",
+    "multimodal_learning_tpu_torch.train.loop",
     "chip_smoke",
 ]
 
 
 def test_port_imports_no_jax():
     """Every port module (and chip_smoke.py) imports without JAX or the JAX
-    package, so the port runs on a machine that has neither."""
+    package, so the port runs on a machine that has neither, and without
+    scikit-learn or pandas, which the machine with the card lacks."""
     pkg_dir = os.path.join(REPO, "multimodal_learning_tpu_torch")
     found = {os.path.relpath(os.path.join(d, f), REPO)[:-3]
              .replace(os.sep, ".").removesuffix(".__init__")
@@ -235,7 +248,8 @@ def test_port_imports_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'multimodal_learning_tpu')]\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'multimodal_learning_tpu', "
+            "'sklearn', 'pandas')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

@@ -10,9 +10,11 @@ interpret mode; the port takes their plain versions on the CPU.  ResNet18
 at 64^2, path_dim = omic_dim = mmhid = feat_dim = 16, batch 4, nce_k 8,
 n_data 32, ``pallas_fusion="train"``, fp32.
 
-Two configurations: the JAX benchmark's (CRD on, pos_mode exact, two
-teachers, L1 on omic_net) and the ``recipes/baseline.py`` teacher (CRD off,
-``cut_fuse_grad``, beta1 0.9).
+Three configurations: the JAX benchmark's (CRD on, pos_mode exact, two
+teachers, L1 on omic_net), the same with ``paired_conv`` (the 64-channel
+stage's convolutions through ``ops/paired_conv.py`` in the port and the
+lane-paired convolutions in the JAX package), and the
+``recipes/baseline.py`` teacher (CRD off, ``cut_fuse_grad``, beta1 0.9).
 
 Tolerances: the loss parts, accuracy counts and the new BatchNorm
 statistics at the whole-model rtol 2e-3 / atol 5e-4 (conv sums run in
@@ -55,6 +57,11 @@ CONFIGS = {
                   pos_mode="exact", nce_p=1, reg_type="omic"),
     "recipe_teacher": dict(CRD_distill=0, pred_distill=1, cut_fuse_grad=True,
                            beta1=0.9),
+    # the benchmark's step with the 64-channel stage's convs through the
+    # port's B5 route (ops/paired_conv.py) and the JAX package's pairing
+    "bench_paired": dict(CRD_distill=1, pred_distill=1, num_teachers=2,
+                         pos_mode="exact", nce_p=1, reg_type="omic",
+                         paired_conv=True),
 }
 WHOLE = dict(rtol=2e-3, atol=5e-4)
 
@@ -186,7 +193,8 @@ def test_teacher_train_and_eval_step_match_jax(config, interpret_pallas,
     for k in jmetrics:
         np.testing.assert_allclose(metrics[k].numpy(), jmetrics[k], **WHOLE,
                                    err_msg=k)
-    assert float(metrics["loss_CRD"] if config == "bench" else 1.0) > 0
+    assert float(metrics["loss_CRD"] if config != "recipe_teacher"
+                 else 1.0) > 0
 
     got, want = jax_state_tree(state), _jax_tree(jnew)
     assert got["step"] == want["step"] == 1

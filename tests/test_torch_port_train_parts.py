@@ -273,7 +273,8 @@ def test_ema_update_matches_jax():
     assert torch.equal(ema.stat, torch.ones(3))   # buffers never averaged
 
 
-@pytest.mark.parametrize("policy", ["linear", "exp", "step", "cosine"])
+@pytest.mark.parametrize("policy",
+                         ["linear", "exp", "step", "cosine", "plateau"])
 def test_lr_schedules_match_jax(policy):
     from multimodal_learning_tpu.config import Options as JOptions
     from multimodal_learning_tpu.train import make_lr_schedule as j_sched
@@ -289,9 +290,8 @@ def test_unported_policies_and_optimizers_raise():
     from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.train import (make_lr_schedule,
                                                      make_optimizer)
-    for policy in ("onecycle", "plateau"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_lr_schedule(Options(lr_policy=policy), 10)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        make_lr_schedule(Options(lr_policy="onecycle"), 10)
     for name in ("adabound", "adagrad"):
         with pytest.raises(NotImplementedError, match="ROADMAP A8"):
             make_optimizer(Options(optimizer_type=name),
