@@ -47,10 +47,14 @@ Phases, each of which raises on failure (nothing is caught):
     step and 4 per eval forward, B1 twice per step, B2 once per eval
     forward;
 13. times B5 (bf16 and fp32) against its plain version, ``F.conv2d`` and
-    its bound.
+    its bound, and prints the share of the bound reached and the ratio to
+    ``F.conv2d`` for each dtype.
 
-Phase 3 also holds B5 against its plain version (TF32 off) at the stage-1
-shape and three ragged ones, in bf16 and fp32, and its autograd function's
+Phase 3 also holds B5 against its plain version (TF32 off), in bf16 and
+fp32, at the stage-1 shape, ragged ones, one with many tiles per block, one
+with fewer tiles than SMs, and one with ragged row and column bands; its
+transposed form (the data gradient) likewise; checks that two launches on
+the same inputs give the same bits; and holds its autograd function's
 gradients against autograd of ``F.conv2d``.
 
 The next-to-last line is the kernel table as JSON; the last line is
@@ -73,8 +77,12 @@ SEED = 2019
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12     # fp32 outside the tensor cores
 H100_BF16_FLOP_PER_S = 989e12    # dense bf16 on the tensor cores
+# (B, H, W, C); the first is stage 1 at 512^2; (33, ...) gives each block
+# 16 tiles, (1, 1, 2) fewer tiles than SMs, (5, 129, 66) a ragged bottom row
+# band and a ragged right column band
 CONV_SHAPES = [(16, 128, 128, 64), (1, 128, 128, 64), (3, 37, 50, 64),
-               (2, 8, 8, 64)]    # (B, H, W, C); the first is stage 1 at 512^2
+               (2, 8, 8, 64), (33, 128, 128, 64), (1, 1, 2, 64),
+               (5, 129, 66, 64)]
 KRON_SHAPES = [(16, 129, 129, 128), (1, 129, 129, 128), (37, 129, 129, 128),
                (4, 9, 9, 16)]
 N_IMAGES = 20
@@ -223,7 +231,10 @@ def _check_conv_kernel(gen, dev, card):
     (TF32 off): bf16 at rtol 1e-2 / atol 1e-2 (about one bf16 ulp at the
     output's scale), fp32 at rtol 1e-4 / atol 1e-5; then the autograd
     function's dx (B5 on the flipped weights) and dW against autograd of
-    F.conv2d in fp32.  Returns the max abs error per dtype."""
+    F.conv2d in fp32.  Both the forward and the transposed form (W flipped
+    and IO-swapped as it is staged: the data gradient), and a second launch
+    on the same inputs, which must give the same bits.  Returns the max abs
+    error per dtype."""
     from torch.nn import functional as F
 
     from multimodal_learning_tpu_torch.ops import paired_conv as pc
@@ -232,16 +243,24 @@ def _check_conv_kernel(gen, dev, card):
         for dtype, tol in ((torch.bfloat16, dict(rtol=1e-2, atol=1e-2)),
                            (torch.float32, dict(rtol=1e-4, atol=1e-5))):
             x, w = _conv_inputs(shape, gen, dev, dtype)
-            with torch.inference_mode():
-                got = pc.conv3x3(x, w).float()
-                want = pc.conv3x3_plain(x.float(), w.float())
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            torch.testing.assert_close(got, want, **tol,
-                                       msg=f"conv3x3 {shape} {dtype}")
-            errs[dtype] = max(errs.get(dtype, 0.0), err)
-            print(f"conv3x3 {shape} {dtype} max_abs_err={err:.3e} "
-                  f"(rtol {tol['rtol']}, atol {tol['atol']}; {card})")
+            for transposed in (False, True):
+                what = f"conv3x3 {shape} {dtype}" + (
+                    " transposed" if transposed else "")
+                with torch.inference_mode():
+                    got = pc.conv3x3(x, w, transposed)
+                    again = pc.conv3x3(x, w, transposed)
+                    want = pc.conv3x3_plain(x.float(), w.float(), transposed)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise RuntimeError(f"{what}: two launches on the same "
+                                       "inputs differ")
+                got = got.float()
+                err = (got - want).abs().max().item()
+                torch.testing.assert_close(got, want, **tol, msg=what)
+                errs[dtype] = max(errs.get(dtype, 0.0), err)
+                print(f"{what} max_abs_err={err:.3e}, bitwise equal on a "
+                      f"second launch (rtol {tol['rtol']}, atol "
+                      f"{tol['atol']}; {card})")
     for shape in ((2, 16, 16, 64), (3, 37, 50, 64)):
         x, w = (t.requires_grad_() for t in _conv_inputs(
             shape, gen, dev, torch.float32))
@@ -665,8 +684,9 @@ def _time_conv(gen, dev, card, flush):
     computes the same function; the plain version is that call too) at
     stage 1 of the 512^2 trunk, bf16 (the train and serving paths) and
     fp32; the bound from x and y once each plus W, and the convolution's
-    operations at the dtype's peak.  Returns {dtype: (times, bound_ms,
-    bound_by)}."""
+    operations at the dtype's peak; the share of the bound reached
+    (bound / kernel time) and the ratio to ``F.conv2d`` (kernel / library
+    time), L2-cold.  Returns {dtype: (times, bound_ms, bound_by)}."""
     from torch.nn import functional as F
 
     from multimodal_learning_tpu_torch.ops import paired_conv as pc
@@ -698,6 +718,9 @@ def _time_conv(gen, dev, card, flush):
         print(f"timing conv3x3 {dtype} bound_ms={bound_ms:.5f} by {bound_by}:"
               f" {nbytes} bytes at 3.35 TB/s, {flops} flop at {what} "
               f"({card})")
+        print(f"timing conv3x3 {dtype}: {bound_ms / times['kernel', True]:.4f}"
+              f" of the bound, {times['kernel', True] / times['library', True]:.4f}"
+              f" x F.conv2d's time (L2-cold; {card})")
         out[dtype] = (times, bound_ms, bound_by)
     return out
 
@@ -930,6 +953,7 @@ def main() -> int:
             "plain_ms": t["plain", True], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": t.get(("library", True))})
     t, bound_ms, bound_by = ctimes[torch.bfloat16]
+    t32, bound32, _ = ctimes[torch.float32]
     kernels.append({
         "name": "conv3x3", "route": "cuda",
         "source": "multimodal_learning_tpu_torch/ops/csrc/conv3x3.cu",
@@ -937,7 +961,14 @@ def main() -> int:
         "launches": cv_launches["conv3x3"],
         "max_abs_err": max(conv_errs.values()), "ms": t["kernel", True],
         "plain_ms": t["plain", True], "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": t["library", True]})
+        "bound_by": bound_by, "library_ms": t["library", True],
+        "bound_share": bound_ms / t["kernel", True],
+        "library_ratio": t["kernel", True] / t["library", True],
+        "fp32_ms": t32["kernel", True], "fp32_plain_ms": t32["plain", True],
+        "fp32_bound_ms": bound32, "fp32_library_ms": t32["library", True],
+        "fp32_bound_share": bound32 / t32["kernel", True],
+        "fp32_library_ratio": t32["kernel", True] / t32["library", True],
+        "fp32_max_abs_err": conv_errs[torch.float32]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,16 +9,17 @@ Pallas kernel ``tools/pallas_conv_proto.py:_kernel`` (B5).  The card has no
 lanes to pair, so the port computes the same function with the same
 parameters through its own CUDA kernel (``csrc/conv3x3.cu``):
 
-- ``conv3x3(x, w)``: the kernel for CUDA tensors, its plain version
-  ``conv3x3_plain`` (``F.conv2d(x, w, padding=1)``) for CPU tensors.  ``x``
+- ``conv3x3(x, w, transposed=False)``: the kernel for CUDA tensors, its
+  plain version ``conv3x3_plain`` (``F.conv2d(x, w, padding=1)``) for CPU
+  tensors.  ``transposed`` convolves with ``w`` flipped in (ky, kx) and its
+  in and out channels swapped, read in place by the kernel.  ``x``
   is NCHW-shaped with channels-last strides, the memory the port's trunk
   holds (an NHWC tensor), handed to the kernel as NHWC without a copy; the
   result is channels-last too.  bf16 or fp32, any B, H, W, 64 channels in
   and out.  Launches are counted in ``conv3x3.launches``.
 - ``paired_conv3x3(x, w)``: differentiable, as ``_pc3_fwd``/``_pc3_bwd``
   are: the forward is ``conv3x3``; the data gradient is ``conv3x3`` again
-  on the incoming gradient with the weights flipped in (ky, kx) and their
-  in and out channels swapped; the weight gradient is
+  on the incoming gradient with ``transposed=True``; the weight gradient is
   ``torch.nn.grad.conv2d_weight`` in the activations' dtype, as the JAX
   weight gradient (``_wgrad3``) is XLA and not Pallas.  An incoming
   gradient that is not channels-last is made so, and counted in
@@ -47,8 +48,11 @@ CHANNELS = 64
 _typed = False
 
 
-def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
+                  transposed: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel (the CPU path and the oracle)."""
+    if transposed:
+        w = w.flip(2, 3).transpose(0, 1)
     return F.conv2d(x, w, padding=1)
 
 
@@ -57,7 +61,7 @@ def _lib():
     lib = _build.load("conv3x3")
     if not _typed:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.conv3x3_fwd.argtypes = [p, p, p, i, i, i, i, p]
+        lib.conv3x3_fwd.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.conv3x3_fwd.restype = ctypes.c_int
         lib.conv3x3_error_string.argtypes = [i]
         lib.conv3x3_error_string.restype = ctypes.c_char_p
@@ -82,17 +86,17 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("conv3x3: w is not contiguous")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("conv3x3: x and w must be 16-byte aligned")
-    if x.shape[0] > 65535:
-        raise ValueError("conv3x3: more than 65535 images in one call")
 
 
-def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv3x3(x: torch.Tensor, w: torch.Tensor,
+            transposed: bool = False) -> torch.Tensor:
     """Same-pad 3x3 stride-1 convolution, 64 -> 64 channels (kernel B5 on
     CUDA, the plain version on the CPU).  ``x`` [B, 64, H, W] channels-last,
     ``w`` [64, 64, 3, 3]; returns [B, 64, H, W] channels-last in x's
-    dtype."""
+    dtype.  ``transposed``: convolve with ``w.flip(2, 3).transpose(0, 1)``
+    (the data gradient) without forming it."""
     if x.device.type == "cpu" and w.device.type == "cpu":
-        return conv3x3_plain(x, w)
+        return conv3x3_plain(x, w, transposed)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3: no kernel for device {x.device}")
     _check(x, w)
@@ -104,6 +108,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         err = lib.conv3x3_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h,
                               wd, int(x.dtype == torch.bfloat16),
+                              int(transposed),
                               torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("conv3x3: kernel launch failed: "
@@ -132,7 +137,7 @@ class _PairedConv3x3(torch.autograd.Function):
                 g = g.contiguous(memory_format=torch.channels_last)
                 paired_conv3x3.grad_copies += 1
             if ctx.needs_input_grad[0]:
-                dx = conv3x3(g, w.flip(2, 3).transpose(0, 1).contiguous())
+                dx = conv3x3(g, w, transposed=True)
             if ctx.needs_input_grad[1]:
                 dw = torch.nn.grad.conv2d_weight(x, w.shape, g, padding=1)
         return dx, dw

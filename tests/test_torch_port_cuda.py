@@ -135,8 +135,12 @@ def test_kron_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         kron_fusion.kron_matmul_dropout(o1, o2, w, b, _mask(4, 81, "cpu"))
 
 
+# the stage-1 shape, ragged ones, many tiles per block (33 images: 2112
+# tiles on 132 SMs), fewer tiles than SMs (1 x 1 x 2), and a ragged bottom
+# row band with a ragged right column band (129 x 66)
 CONV_SHAPES = [(16, 128, 128, 64), (1, 128, 128, 64), (3, 37, 50, 64),
-               (2, 8, 8, 64)]
+               (2, 8, 8, 64), (33, 128, 128, 64), (1, 1, 2, 64),
+               (5, 129, 66, 64)]
 
 
 def _conv_inputs(shape, dev, dtype, seed=0):
@@ -163,6 +167,36 @@ def test_conv3x3_kernel_matches_plain(cuda, shape, dtype):
     want = paired_conv.conv3x3_plain(x.float(), w.float())
     tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(got.float(), want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(16, 128, 128, 64), (3, 37, 50, 64),
+                                   (5, 129, 66, 64)])
+def test_conv3x3_transposed_matches_plain(cuda, shape, dtype):
+    """The data-gradient form: W flipped and IO-swapped as it is staged."""
+    x, w = _conv_inputs(shape, cuda, dtype, seed=2)
+    before = paired_conv.conv3x3.launches
+    got = paired_conv.conv3x3(x, w, transposed=True)
+    torch.cuda.synchronize()
+    assert paired_conv.conv3x3.launches == before + 1
+    want = paired_conv.conv3x3_plain(x.float(), w.float(), transposed=True)
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got.float(), want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(16, 128, 128, 64), (33, 128, 128, 64),
+                                   (5, 129, 66, 64)])
+def test_conv3x3_is_bitwise_reproducible(cuda, shape, dtype):
+    """A fixed tile schedule and summation order, no atomics: two launches
+    on the same inputs give the same bits."""
+    x, w = _conv_inputs(shape, cuda, dtype, seed=3)
+    first = paired_conv.conv3x3(x, w)
+    second = paired_conv.conv3x3(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

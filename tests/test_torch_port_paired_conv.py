@@ -9,6 +9,9 @@ weights), so the flip and transposition are what these tests hold.
 - ``paired_conv3x3`` forward and both gradients against JAX's
   ``paired_conv3x3`` through ``jax.vjp``, fp32, rtol 1e-5 / atol 1e-5 (the
   same function summed in another order).
+- ``conv3x3(g, w, transposed=True)`` (the kernel's data-gradient form, W
+  flipped and IO-swapped as it is staged) against JAX's ``_pc3_bwd``, at
+  the same tolerance.
 - The plain version against the Pallas kernel B5 itself
   (``tools/pallas_conv_proto.py:conv_pallas``, interpret mode) at its one
   shape, bf16, rtol 1e-2 / atol 1e-2: one bf16 ulp at the output's scale
@@ -30,6 +33,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
 from multimodal_learning_tpu import models as jm
+from multimodal_learning_tpu.ops import paired_conv as j_pc
 from multimodal_learning_tpu.ops.paired_conv import \
     paired_conv3x3 as j_paired_conv3x3
 from multimodal_learning_tpu_torch import models as pm
@@ -71,6 +75,25 @@ def test_paired_conv3x3_forward_and_grads_match_jax(shape):
                                np.asarray(want_dx), **tol)
     np.testing.assert_allclose(dw.permute(2, 3, 1, 0).numpy(),
                                np.asarray(want_dk), **tol)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (1, 7, 10, 64)])
+def test_transposed_conv3x3_is_jax_data_gradient(shape):
+    """The plain version's ``transposed`` form, and the wrapper's on the CPU,
+    against the data gradient of JAX's custom VJP (``_pc3_bwd``)."""
+    rng = np.random.default_rng(7 + sum(shape))
+    x = rng.normal(size=shape).astype(np.float32)
+    k = (rng.normal(size=(3, 3, 64, 64)) * 0.06).astype(np.float32)  # HWIO
+    g = rng.normal(size=shape).astype(np.float32)
+    want_dx, _ = j_pc._pc3_bwd((jnp.asarray(x), jnp.asarray(k)),
+                               jnp.asarray(g))
+    w = torch.from_numpy(k.transpose(3, 2, 0, 1).copy())   # [Co, Ci, 3, 3]
+    before = pc.conv3x3.launches
+    for got in (pc.conv3x3_plain(_nchw(g), w, transposed=True),
+                pc.conv3x3(_nchw(g), w, transposed=True)):
+        np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(want_dx), rtol=1e-5, atol=1e-5)
+    assert pc.conv3x3.launches == before
 
 
 def test_plain_conv3x3_matches_pallas_b5(monkeypatch):
