@@ -6,11 +6,14 @@ NVIDIA GPU.
 Phases, each of which raises on failure (nothing is caught):
 
 1. the card: CUDA must be available; prints its name and power limit;
-2. builds every CUDA kernel of the port from the sources in this checkout;
+2. builds every CUDA kernel of the port from the sources in this checkout
+   and fails if ``ptxas`` reports spills in the Kronecker forward kernels;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes the serving and train paths give it (and a few ragged ones): the
-   eval contraction B2, the masked train contraction B1 (forward, and its
-   torch backward), and B3 and B4 through ``kron_matmul(...).backward``;
+   eval contraction B2 and the masked train contraction B1 (one split-column
+   GEMM kernel; also at fewer columns than blocks, N % 4 == 0 and several
+   batch and k tiles, and bitwise equal on a second launch), B1's torch
+   backward, and B3 and B4 through ``kron_matmul(...).backward``;
 4. drives the serving path end to end at the pofusion teacher's full width
    (ResNet18 on 512^2 patches + MaxNet + Kronecker fusion, path_dim =
    omic_dim = mmhid = 128, bf16 encoders, batch 16) with seeded random
@@ -19,22 +22,24 @@ Phases, each of which raises on failure (nothing is caught):
    an omic CSV, counting the kernels' launches;
 5. cross-checks the same weights' float32 forward on the card (kernel path,
    TF32 off) against the CPU (plain path);
-6. times B2, its plain version and the one PyTorch call that computes the
-   same function, and the serving forward, and breaks the forward's device
-   time down by kernel with torch.profiler;
+6. times an empty launch (the timing floor), B2, its plain version, the
+   one PyTorch call that computes the same function and the cuBLAS GEMM of
+   the pre-formed Kronecker vector, and the serving forward, and breaks the
+   forward's device time down by kernel with torch.profiler;
 7. drives the teacher's train path at full width (the JAX benchmark's
    flagship step: CRD with nce_k 512 + pred-KD, bf16 encoders, 512^2, two
    views, batch 16) through ``init_teacher_state`` and
    ``build_teacher_train_step``: 20 timed steps that must launch B1 twice
    each (student and EMA forward) with finite losses, then a profiled
-   window of 3 steps;
+   window of 3 steps that gives B1's time per step;
 8. runs the saliency pass of the masked step (eval forward under autograd,
    NLL on ``pred_fuse``, backward to the inputs and the params), which must
    launch B3 and B4;
 9. cross-checks one fp32 train step on the card (kernel path, TF32 off)
    against the CPU (plain path) from the same state and views;
 10. times B1, B3 and B4 against their plain versions, a PyTorch call where
-    one computes the same function, and their bounds;
+    one computes the same function, and their bounds; B1 also against the
+    cuBLAS GEMM of the pre-formed masked Kronecker vector;
 11. the train step of phase 7 again with ``--paired_conv True`` (the
     64-channel stage's convolutions through B5, ``ops/paired_conv.py``):
     20 timed steps that must launch B5 12 times each (4 in the student
@@ -65,6 +70,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -85,6 +91,11 @@ CONV_SHAPES = [(16, 128, 128, 64), (1, 128, 128, 64), (3, 37, 50, 64),
                (5, 129, 66, 64)]
 KRON_SHAPES = [(16, 129, 129, 128), (1, 129, 129, 128), (37, 129, 129, 128),
                (4, 9, 9, 16)]
+# the forward kernels B2 and B1 also at a ragged K, fewer columns than
+# blocks (N = 15), N % 4 == 0 (every row at shift 0), and several batch
+# tiles with K beyond one k tile
+FWD_SHAPES = KRON_SHAPES + [(3, 200, 170, 33), (2, 3, 5, 7),
+                            (16, 128, 128, 128), (64, 129, 129, 256)]
 N_IMAGES = 20
 
 
@@ -133,6 +144,48 @@ def _time_ms(fn, n, cold, flush):
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / n
+
+
+def _time_floor(card, flush):
+    """The timing floor of ``_time_ms``: an empty launch
+    (``torch.cuda._sleep(0)``), L2-cold and warm."""
+    times = {cold: _time_ms(lambda: torch.cuda._sleep(0), 50, cold, flush)
+             for cold in (False, True)}
+    print(f"timing floor (an empty launch): L2-cold {times[True]:.5f} "
+          f"L2-warm {times[False]:.5f} ms ({card})")
+    return times
+
+
+def _check_fwd_kernels(gen, dev, card):
+    """B2 and B1 (the one split-column GEMM kernel, without and with the
+    mask) against their plain versions at ``FWD_SHAPES``, each launched
+    twice on the same inputs, which must give the same bits.  Returns the
+    max abs error of each."""
+    from multimodal_learning_tpu_torch.ops import kron_fusion as kf
+    errs = {"kron_fwd": 0.0, "kron_train_fwd": 0.0}
+    for shape in FWD_SHAPES:
+        b, d1, d2, k = shape
+        args = _kron_inputs(*shape, gen, dev)
+        maskf = ((torch.rand(b, d1 * d2, generator=gen) < 0.9).float()
+                 / 0.9).to(dev)
+        for name, fn, plain, extra in (
+                ("kron_fwd", kf.kron_matmul, kf.kron_matmul_plain, []),
+                ("kron_train_fwd", kf.kron_matmul_dropout,
+                 kf.kron_matmul_dropout_plain, [maskf])):
+            with torch.inference_mode():
+                got, again = fn(*args, *extra), fn(*args, *extra)
+                want = plain(*args, *extra)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise RuntimeError(f"{name} {shape}: two launches on the "
+                                   "same inputs differ")
+            err = (got - want).abs().max().item()
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5,
+                                       msg=f"{name} {shape}")
+            errs[name] = max(errs[name], err)
+            print(f"{name} {shape} max_abs_err={err:.3e}, bitwise equal on "
+                  f"a second launch (rtol 1e-4, atol 1e-5; {card})")
+    return errs
 
 
 def _profile_serve(infer, xb, ob, card, n=5, top=8):
@@ -310,7 +363,8 @@ def _train_batch(opt, gen, dev):
 def _profile_steps(step_fn, card, n, top=8, label="train"):
     """Kernel time per train step by name (torch.profiler, CUDA activity)
     and the device's busy share of the same steps' span (CUDA events); also
-    the share of B5's kernels (names holding "conv3x3")."""
+    the time and share of B5's kernels (names holding "conv3x3") and of
+    B1's (names holding "kron_": its main and reduction passes)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -330,10 +384,13 @@ def _profile_steps(step_fn, card, n, top=8, label="train"):
     print(f"profile {label}: {dev_ms:.3f} ms of kernels per step, device "
           f"busy {100 * dev_ms / span_ms:.1f}% of the same steps' "
           f"{span_ms:.3f} ms span ({n} steps; {card})")
-    b5_ms = sum(ev.self_device_time_total for ev in events
-                if "conv3x3" in ev.key) / n / 1e3
-    print(f"profile {label}: B5 (conv3x3) {b5_ms:.4f} ms per step, "
-          f"{100 * b5_ms / dev_ms:.2f}% of kernel time ({card})")
+    for what, tag in (("B5 (conv3x3)", "conv3x3"),
+                      ("B1 (kron_gemm_kernel<true + kron_reduce_kernel; "
+                       "the step launches no other kron kernel)", "kron_")):
+        ms = sum(ev.self_device_time_total for ev in events
+                 if tag in ev.key) / n / 1e3
+        print(f"profile {label}: {what} {ms:.4f} ms per step, "
+              f"{100 * ms / dev_ms:.2f}% of kernel time ({card})")
     for ev in sorted(events, key=lambda ev: -ev.self_device_time_total)[:top]:
         ms = ev.self_device_time_total / n / 1e3
         print(f"  {100 * ms / dev_ms:5.1f}% {ms:.4f} ms x{ev.count // n} "
@@ -547,15 +604,21 @@ def _saliency_pass(state, batch, card):
 
 def _time_train_kernels(gen, dev, card, flush):
     """Each new kernel, its plain version and, where one PyTorch call
-    computes the same function, that call, at (16, 129, 129, 128); and
-    each kernel's bound from the bytes it must move and the operations it
-    must do.  Returns {name: (times, bound_ms, bound_by)}."""
+    computes the same function, that call, at (16, 129, 129, 128); B1 also
+    against the cuBLAS GEMM ``F.linear(a, w, bias)`` of the masked
+    Kronecker vector a formed outside the timed call (TF32 off); and each
+    kernel's bound from the bytes it must move and the operations it must
+    do.  Returns {name: (times, bound_ms, bound_by)}."""
+    from torch.nn import functional as F
+
     from multimodal_learning_tpu_torch.ops import kron_fusion as kf
     b, d1, d2, k = KRON_SHAPES[0]
     n = d1 * d2
     o1, o2, w, bias = _kron_inputs(b, d1, d2, k, gen, dev)
     maskf = ((torch.rand(b, n, generator=gen) < 0.9).float() / 0.9).to(dev)
     g = torch.randn(b, k, generator=gen).to(dev)
+    a = kf._kron_vec(o1, o2) * maskf
+    gemm = {"kron_train_fwd": lambda: F.linear(a, w, bias)}
     cases = {
         # name: (kernel, plain, library or None, bytes, flop)
         "kron_train_fwd": (
@@ -579,7 +642,7 @@ def _time_train_kernels(gen, dev, card, flush):
         for name, (kern, plain, lib, nbytes, flops) in cases.items():
             times = {}
             for which, fn in (("kernel", kern), ("plain", plain),
-                              ("library", lib)):
+                              ("library", lib), ("gemm", gemm.get(name))):
                 if fn is None:
                     continue
                 for cold in (False, True):
@@ -588,10 +651,11 @@ def _time_train_kernels(gen, dev, card, flush):
             t_ops = flops / H100_FP32_FLOP_PER_S
             bound_ms = 1e3 * max(t_bytes, t_ops)
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
-            for which in ("kernel", "plain", "library"):
+            for which in ("kernel", "plain", "library", "gemm"):
                 if (which, True) not in times:
-                    print(f"timing {name} library_ms: none (no one PyTorch "
-                          "call computes it)")
+                    if which == "library":
+                        print(f"timing {name} library_ms: none (no one "
+                              "PyTorch call computes it)")
                     continue
                 print(f"timing {name} {which}_ms: L2-cold "
                       f"{times[which, True]:.5f} L2-warm "
@@ -599,7 +663,8 @@ def _time_train_kernels(gen, dev, card, flush):
                       f"K={k}; {card})")
             print(f"timing {name} bound_ms={bound_ms:.5f} by {bound_by}: "
                   f"{nbytes} bytes at 3.35 TB/s, {flops} flop at 67 TFLOP/s "
-                  f"fp32 ({card})")
+                  f"fp32; {bound_ms / times['kernel', True]:.4f} of the "
+                  f"bound L2-cold ({card})")
             out[name] = (times, bound_ms, bound_by)
     return out
 
@@ -767,24 +832,20 @@ def main() -> int:
         print(f"[nvcc {name}]", " | ".join(
             ln.strip() for ln in log.splitlines() if "Used" in ln
             or "spill" in ln))
+    spills = [ln.strip() for ln in logs.get("kron_fusion", "").splitlines()
+              if any(int(v) for v in re.findall(r"(\d+) bytes spill", ln))]
+    if spills:
+        raise RuntimeError("the Kronecker forward kernels spill: "
+                           + " | ".join(spills))
 
     # 3. each kernel against its plain version on the card
     gen = torch.Generator().manual_seed(SEED)
-    kron_err = 0.0
-    for shape in KRON_SHAPES:
-        args = _kron_inputs(*shape, gen, dev)
-        with torch.inference_mode():
-            got = kron_fusion.kron_matmul(*args)
-            want = kron_fusion.kron_matmul_plain(*args)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
-        kron_err = max(kron_err, err)
-        print(f"kron_fwd {shape} max_abs_err={err:.3e} (rtol 1e-4, "
-              f"atol 1e-5; {card})")
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions
     torch.backends.cudnn.allow_tf32 = False
+    fwd_errs = _check_fwd_kernels(gen, dev, card)
     train_errs = _check_train_kernels(gen, dev, card)
+    train_errs["kron_train_fwd"] = max(train_errs["kron_train_fwd"],
+                                       fwd_errs["kron_train_fwd"])
     conv_errs = _check_conv_kernel(gen, dev, card)
 
     # 4. the serving path end to end at the teacher's full width
@@ -862,10 +923,13 @@ def main() -> int:
     o1, o2, w, bias = _kron_inputs(b, d1, d2, k, gen, dev)
     w3 = w.view(k, d1, d2)   # F.bilinear's A[k, i, j] = W[j, i, k]
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    floor = _time_floor(card, flush)
+    a = kron_fusion._kron_vec(o1, o2)    # pre-formed for the GEMM
     fns = {
         "kernel": lambda: kron_fusion.kron_matmul(o1, o2, w, bias),
         "plain": lambda: kron_fusion.kron_matmul_plain(o1, o2, w, bias),
         "library": lambda: torch.nn.functional.bilinear(o1, o2, w3, bias),
+        "gemm": lambda: torch.nn.functional.linear(a, w, bias),
     }
     times = {}
     with torch.inference_mode():
@@ -885,7 +949,8 @@ def main() -> int:
           f"{nbytes} bytes at 3.35 TB/s, {flops} flop at 67 TFLOP/s fp32; "
           f"W is {4 * k * d1 * d2 / 1e6:.2f} MB, inside the 50 MB L2, so "
           "warm calls read it from L2 and only the L2-cold time is held to "
-          f"the HBM bound ({card})")
+          f"the HBM bound; {bound_ms / times['kernel', True]:.4f} of the "
+          f"bound L2-cold ({card})")
 
     infer = make_infer_fn(opt, model.to(dev))
     xb = torch.randint(0, 256, (opt.batch_size, 512, 512, 3),
@@ -934,17 +999,21 @@ def main() -> int:
         "name": "kron_fwd", "route": "cuda",
         "source": "multimodal_learning_tpu_torch/ops/csrc/kron_fusion.cu",
         "replaces": "multimodal_learning_tpu/ops/kron_fusion.py:46",
-        "launches": kron_launches, "max_abs_err": kron_err,
+        "launches": kron_launches, "max_abs_err": fwd_errs["kron_fwd"],
         "ms": times["kernel", True], "plain_ms": times["plain", True],
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": times["library", True]}]
+        "library_ms": times["library", True],
+        "bound_share": bound_ms / times["kernel", True],
+        "gemm_ms": times["gemm", True], "warm_ms": times["kernel", False],
+        "floor_ms": floor[True]}]
     jax_kron = "multimodal_learning_tpu/ops/kron_fusion.py"
     for name, replaces, launches in (
             ("kron_train_fwd", f"{jax_kron}:164", b1_launches),
             ("kron_bwd_dw", f"{jax_kron}:76", b3_launches),
             ("kron_bwd_dvec", f"{jax_kron}:89", b4_launches)):
         t, bound_ms, bound_by = ttimes[name]
-        src = "kron_train.cu" if name == "kron_train_fwd" else "kron_bwd.cu"
+        src = ("kron_fusion.cu" if name == "kron_train_fwd"
+               else "kron_bwd.cu")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"multimodal_learning_tpu_torch/ops/csrc/{src}",
@@ -952,6 +1021,11 @@ def main() -> int:
             "max_abs_err": train_errs[name], "ms": t["kernel", True],
             "plain_ms": t["plain", True], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": t.get(("library", True))})
+        if name == "kron_train_fwd":
+            kernels[-1].update(
+                bound_share=bound_ms / t["kernel", True],
+                gemm_ms=t["gemm", True], warm_ms=t["kernel", False],
+                floor_ms=floor[True])
     t, bound_ms, bound_by = ctimes[torch.bfloat16]
     t32, bound32, _ = ctimes[torch.float32]
     kernels.append({

@@ -14,10 +14,10 @@ drivers):
 - ``models``    ResNet18 (with ``--paired_conv``), MaxNet, BilinearFusion,
                 PathomicModel, and the weight bridge to and from the JAX
                 package's flax trees
-- ``ops``       the Kronecker-fusion kernels: eval forward
-                (``csrc/kron_fusion.cu``), its backward (``csrc/kron_bwd.cu``)
-                and the masked train forward (``csrc/kron_train.cu``); the
-                stage-1 3x3 convolution (``csrc/conv3x3.cu``)
+- ``ops``       the Kronecker-fusion kernels: the eval and the masked train
+                forward (one kernel, ``csrc/kron_fusion.cu``), the eval
+                backward (``csrc/kron_bwd.cu``); the stage-1 3x3
+                convolution (``csrc/conv3x3.cu``)
 - ``data``      CV splits, contrast sampling, the host loaders with device
                 prefetch, the native JPEG decoder, on-device augmentation
 - ``losses``    NLL, Cox, L1, pred-KD, DistillKL, SP, orth

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/lib<name>-<hash>.so``
-at the repository root; the hash covers the source and the flags, so an
-edited source is rebuilt and never loaded stale.  A build writes to a
+at the repository root; the hash covers the source, every header
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and never loaded stale.  A build writes to a
 temporary name and renames it into place, so concurrent builders never load
 a partial library.  Nothing is built or imported when this module is
 imported: the CPU tests import every module of the port.
@@ -44,8 +45,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(f.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -1,142 +1,590 @@
-// Kronecker-fusion eval forward for Hopper (sm_90a), fp32.
+// Kronecker-fusion forward for Hopper (sm_90a), fp32: the eval contraction
+// (`kron_fwd`) and the masked train contraction (`kron_train_fwd`) as one
+// split-column skinny GEMM.
 //
-// Replaces the Pallas TPU kernel `_fwd_kernel` in
-// multimodal_learning_tpu/ops/kron_fusion.py (launched by `kron_matmul`).
-// It computes
+// Replaces two Pallas TPU kernels of multimodal_learning_tpu/ops/
+// kron_fusion.py: `_fwd_kernel` (:46, launched by `kron_matmul`) and
+// `_fwd_train_kernel` (:164, launched by `kron_matmul_dropout`).  Both are
 //
-//     y[b, k] = sum_i o1[b, i] * sum_j o2[b, j] * W[k, i*d2 + j] + bias[k]
+//     y[b, k] = sum_n a[b, n] * W[k, n] + bias[k],
+//     a[b, n] = o1[b, i] * o2[b, j] * m[b, n],   n = i*d2 + j,
 //
 // with W the pofusion `encoder1` Linear weight read in place, in the torch
-// layout [K, d1*d2] (row-major over (i, j)).  The Kronecker vector
-// vec(o1 o2^T) is never formed in device memory.
+// layout [K, N], N = d1*d2, and m the pre-scaled dropout mask [B, N].  The
+// eval kernel is the same template with no mask: no mask bytes are read.  a
+// is formed in shared memory only; it never reaches device memory.
 //
 // Bound.  At the paper width (B=16, d1=d2=129, K=128) the kernel must read
-// W once: 8.52 MB, about 2.5 us at 3.35 TB/s.  The arithmetic is about
-// 68 MFLOP, about 1 us at the card's 67 TFLOP/s of fp32 outside the tensor
-// cores.  So it is bound by bytes.  It stays in IEEE fp32 FMA (no TF32, no
-// tensor cores) because the JAX kernel runs Precision.HIGHEST.
+// W once (8.52 MB), and the mask (1.06 MB) when masked: 2.55 / 2.87 us at
+// 3.35 TB/s.  Its 34 M FMAs take about 1.0 us at the card's 67 TFLOP/s of
+// fp32 outside the tensor cores.  So it is bound by bytes.  It stays in IEEE
+// fp32 FMA (no TF32, no tensor cores): the JAX kernels run Precision.HIGHEST.
 //
-// Design.  One block per output column k, so W's row k (16641 floats) is
-// read by one block, once per tile of BT batch rows, and no two blocks
-// share an output: no atomics, and the sum order is fixed (deterministic).
-// Lanes of a warp take 32 consecutive j, warps take rows i, so each warp's
-// load of W is one coalesced 128-byte line.  A thread keeps o2[b, j] of its
-// NCH column chunks in registers and forms the row product
-// t[b] = sum_j W[k,i,j] o2[b,j] before it multiplies by o1[b,i] (read as a
-// warp-wide broadcast from shared memory), so the inner loop is about one
-// FMA per W element and batch row.  A fixed-order block reduction writes
-// y[b,k] + bias[k].  Loops over b tiles, j groups and i tiles take any B,
-// d1, d2 and K; ragged edges are masked.
+// Design.
+// - One wave over every SM.  The grid is about the SM count, and block g
+//   owns the columns [g*cols, (g+1)*cols) for all K (127 columns at the
+//   paper width, 132 blocks), so every byte of W and of m is read once per
+//   tile of 16 batch rows and every SM streams.  The block walks work units
+//   (16 batch rows x 128 outputs) and, in each, stages of CS = 60 columns.
+// - W in flight while the FMAs run, by TMA.  One thread keeps a ring of
+//   NST = 3 stages loading, tracked by mbarriers, while all eight warps
+//   multiply.  (With cp.async a warp keeps only a few copies in flight, so
+//   the warps would stall issuing them instead of multiplying.)  For odd N,
+//   W's row k starts at byte 4*N*k, which is not
+//   16-byte aligned, so no tensor map can step from row to row.  But rows
+//   k = 4m + r of one residue r are 16*N bytes apart, so each residue gets
+//   its own 2-D tensor map, based at the aligned float at or before row r's
+//   start, and a stage is four boxes of 32 rows x 68 floats.  The box of
+//   residue r starts at the aligned column at or before the stage's first,
+//   so its rows sit at a shift s_r = (r*N + c0) mod 4 in the box; the shift
+//   is fixed within a block.  A thread's rows of W all have one residue,
+//   and it reads a from a copy of a shifted by s_r: a is stored four times,
+//   at shifts 0..3.  Columns outside the stage are 0 in a, so the box's
+//   extra W values add nothing; rows and columns past the tensor load as
+//   zeros.  The mask is loaded the same way (four boxes of 4 batch rows),
+//   and a = o1*o2*m is formed from it and from o1 and o2, which are read
+//   through L1 one stage ahead.
+// - Register tiles.  A thread holds 8 (b) x 8 (k) accumulators and reads,
+//   per 4 columns, 8 float4 of a and 8 float4 of W for 256 FMAs.  Box rows
+//   are 68 floats and a thread's rows are rotated by its residue, so a
+//   quarter-warp's float4 reads hit distinct banks: a warp's 16 loads cost
+//   64 shared wavefronts per 256 FMA instructions: on paper shared memory
+//   and the FMA pipes are matched.  Each warp takes two quads of columns of
+//   a stage; the eight warps are added in the block in a fixed order at the
+//   end of each unit.
+// - Partials.  Each block writes one [B, K] tile of partial sums to `part`
+//   (held by the caller; 1.08 MB at the paper width, so it stays in L2).  A
+//   second kernel adds them in the order of the blocks, with the bias.  It
+//   is launched with programmatic dependent launch: its blocks are placed
+//   while the main pass runs and wait at `griddepcontrol.wait`, so no launch
+//   gap remains.  No atomics: two launches on the same inputs give the same
+//   bits.
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
-constexpr int kThreads = 256;            // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int BT = 16;                   // batch rows per tile
-constexpr int NCH = 5;                   // 32-wide j chunks held per thread
-constexpr int IT = 128;                  // o1 rows (i) staged per smem tile
+constexpr int kThreads = 256;  // 8 warps
+constexpr int BT = 16;         // batch rows per work unit
+constexpr int KT = 128;        // outputs per work unit
+constexpr int CS = 60;         // columns per stage
+constexpr int WIN = CS + 4;    // floats of a row a stage reads
+constexpr int QPW = WIN / 4 / (kThreads / 32);   // quads per warp
+constexpr int NST = 3;         // stages in the ring
+constexpr int P = WIN + 4;     // floats per box row (the box's width)
+constexpr int W_BOX = KT / 4 * P;        // floats of one residue's W box
+constexpr int M_BOX = 288;               // one mask box (4 rows), padded
+constexpr int STAGE = 4 * W_BOX + 4 * M_BOX;
+constexpr int SA = BT * P + 8;           // floats per shifted copy of a
+constexpr int A_BUF = 4 * SA;            // a at shifts 0..3
+constexpr int RP = KT + 16;              // floats per row of the reduction
+constexpr int RED = 8 * BT * RP;         // [warp][b][k]
+constexpr size_t SMEM =
+    (size_t)(NST * STAGE + 2 * A_BUF + RED) * 4 + NST * 8;
+static_assert(SMEM <= 232448, "shared memory");
+static_assert(WIN / 4 == QPW * (kThreads / 32), "quads split by warps");
+static_assert(BT * WIN / 4 <= kThreads, "one mask quad per thread");
+static_assert(W_BOX % 32 == 0 && M_BOX % 32 == 0 && M_BOX >= BT / 4 * P,
+              "boxes 128-byte aligned");
+static_assert(SA % 32 == 8 && P % 32 == 4 && RP % 32 == 16, "banks");
+static_assert(CS % 4 == 0, "shifts fixed within a block");
 
-__global__ void __launch_bounds__(kThreads)
-kron_fwd_kernel(const float* __restrict__ o1, const float* __restrict__ o2,
-                const float* __restrict__ w, const float* __restrict__ bias,
-                float* __restrict__ y, int B, int d1, int d2, int K) {
-  __shared__ __align__(16) float o1s[IT * BT];  // o1s[ii * BT + b]
-  __shared__ float red[BT][kWarps];
+struct Maps {   // tensor maps of W and m, one per residue of the row mod 4
+  CUtensorMap w[4], m[4];
+};
 
-  const int k = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const float* wk = w + (size_t)k * d1 * d2;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  for (int b0 = 0; b0 < B; b0 += BT) {
-    float acc[BT];
-#pragma unroll
-    for (int b = 0; b < BT; ++b) acc[b] = 0.f;
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 
-    for (int jg = 0; jg < d2; jg += 32 * NCH) {
-      float o2r[NCH][BT];
-#pragma unroll
-      for (int m = 0; m < NCH; ++m) {
-        const int j = jg + 32 * m + lane;
-#pragma unroll
-        for (int b = 0; b < BT; ++b)
-          o2r[m][b] = (j < d2 && b0 + b < B) ? o2[(size_t)(b0 + b) * d2 + j]
-                                             : 0.f;
-      }
+__device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(smem_u32(bar))
+      : "memory");
+}
 
-      for (int i0 = 0; i0 < d1; i0 += IT) {
-        __syncthreads();  // the previous tile's readers are done
-        for (int idx = threadIdx.x; idx < IT * BT; idx += kThreads) {
-          const int ii = idx / BT, b = idx % BT;
-          const int i = i0 + ii;
-          o1s[idx] = (i < d1 && b0 + b < B) ? o1[(size_t)(b0 + b) * d1 + i]
-                                            : 0.f;
-        }
-        __syncthreads();
-
-        const int iend = min(IT, d1 - i0);
-#pragma unroll 2
-        for (int ii = warp; ii < iend; ii += kWarps) {
-          const float* row = wk + (size_t)(i0 + ii) * d2 + jg + lane;
-          float wv[NCH];
-#pragma unroll
-          for (int m = 0; m < NCH; ++m)
-            wv[m] = (jg + 32 * m + lane < d2) ? __ldg(row + 32 * m) : 0.f;
-          float t[BT];
-#pragma unroll
-          for (int b = 0; b < BT; ++b) {
-            float s = 0.f;
-#pragma unroll
-            for (int m = 0; m < NCH; ++m) s = fmaf(wv[m], o2r[m][b], s);
-            t[b] = s;
-          }
-          const float4* o1v = reinterpret_cast<const float4*>(o1s + ii * BT);
-#pragma unroll
-          for (int q = 0; q < BT / 4; ++q) {
-            const float4 v = o1v[q];
-            acc[4 * q + 0] = fmaf(v.x, t[4 * q + 0], acc[4 * q + 0]);
-            acc[4 * q + 1] = fmaf(v.y, t[4 * q + 1], acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(v.z, t[4 * q + 2], acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(v.w, t[4 * q + 3], acc[4 * q + 3]);
-          }
-        }
-      }
+// A block's stages in order: work units (batch tile b0, output tile k0),
+// each over the block's columns [n0, n1) in stages of CS, starting at c0.
+struct Cursor {
+  int n0, n1, K, b0 = 0, k0 = 0, c0;
+  __device__ Cursor(int n0_, int n1_, int K_) : n0(n0_), n1(n1_), K(K_),
+                                                c0(n0_) {}
+  __device__ bool last() const { return c0 + CS >= n1; }
+  // Advances; returns true when a new unit begins.
+  __device__ bool next() {
+    if (!last()) {
+      c0 += CS;
+      return false;
     }
-
-    // Block reduction in a fixed order: warp shuffles, then across warps.
-#pragma unroll
-    for (int b = 0; b < BT; ++b) {
-      float v = acc[b];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0) red[b][warp] = v;
-    }
-    __syncthreads();
-    if (threadIdx.x < BT && b0 + threadIdx.x < B) {
-      float s = 0.f;
-#pragma unroll
-      for (int q = 0; q < kWarps; ++q) s += red[threadIdx.x][q];
-      y[(size_t)(b0 + threadIdx.x) * K + k] = s + bias[k];
-    }
-    __syncthreads();  // red is reused by the next b tile
+    c0 = n0;
+    if ((k0 += KT) >= K) k0 = 0, b0 += BT;
+    return true;
   }
+};
+
+// Partial sums of block g over its columns: part[g, b, k] for all b < B,
+// k < K.  gridDim.x * cols >= N.  Map r of W (of m) exists when bit r of
+// `w_maps` (`m_maps`) is set: when a row of that residue exists.
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads, 1)
+kron_gemm_kernel(const __grid_constant__ Maps maps,
+                 const float* __restrict__ o1, const float* __restrict__ o2,
+                 float* __restrict__ part, int B, int d1, int d2, int K,
+                 int cols, int w_maps, int m_maps) {
+  // The reduction pass may be placed now; it waits for this grid to end.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  extern __shared__ __align__(1024) float sm[];
+  float* a_buf = sm + NST * STAGE;
+  float* red = a_buf + 2 * A_BUF;
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + RED);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int N = d1 * d2;
+  const int n0 = blockIdx.x * cols, n1 = min(n0 + cols, N);
+  const int n_t = (B + BT - 1) / BT * ((K + KT - 1) / KT) *
+                  ((n1 - n0 + CS - 1) / CS);
+  // the shift of residue r's rows in a box: (r*N + c0) mod 4, c0 = n0 mod 4
+  auto shift_of = [&](int r) { return (r * (N & 3) + n0) & 3; };
+
+  Cursor ld(n0, n1, K);   // the next stage to load, into slot s_ld
+  int s_ld = 0;
+  auto load = [&]() {     // by thread 0
+    float* st = sm + s_ld * STAGE;
+    const int bytes =
+        __popc(w_maps) * W_BOX * 4 +
+        (kMasked ? __popc(m_maps) * BT / 4 * P * 4 : 0);
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            smem_u32(full + s_ld)),
+        "r"(bytes)
+        : "memory");
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int x = ((r * (N & 3) & 3) + ld.c0) & ~3;   // see the maps
+      if (w_maps >> r & 1)
+        tma_load_2d(st + r * W_BOX, &maps.w[r], full + s_ld, x, ld.k0 / 4);
+      if (kMasked && (m_maps >> r & 1))
+        tma_load_2d(st + 4 * W_BOX + r * M_BOX, &maps.m[r], full + s_ld, x,
+                    ld.b0 / 4);
+    }
+    ld.next();
+    if (++s_ld == NST) s_ld = 0;
+  };
+  if (tid == 0) {   // first, as the maps' first use waits for their fetch
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&maps.w[r]))
+                   : "memory");
+      if (kMasked)
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                         reinterpret_cast<uint64_t>(&maps.m[r]))
+                     : "memory");
+    }
+    for (int s = 0; s < NST; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_u32(full + s))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < NST - 1 && t < n_t; ++t) load();
+  }
+  // a_s[s][b][x] outside x in [s, s + CS) is never written: zeros
+  for (int e = tid; e < 2 * 4 * BT * 4; e += kThreads) {
+    const int x = e & 3, b = e >> 2 & (BT - 1), sh = e / (4 * BT) & 3;
+    a_buf[e / (16 * BT) * A_BUF + sh * SA + b * P + (x < sh ? x : CS + x)] =
+        0.f;
+  }
+
+  // This thread forms a for mask quad mq of batch row mr of each stage:
+  // columns c0 + y[c], y[c] = 4*mq + c - tau, tau the row's shift.  o1 and
+  // o2 for them are read one stage ahead (cursor nx); (i, j) of a column
+  // advance by CS a stage, with no division.
+  const int mr = tid / (WIN / 4), mq = tid % (WIN / 4);
+  const bool has_mq = tid < BT * WIN / 4;
+  const int tau = kMasked ? shift_of(mr & 3) : 0;
+  const float* m_s = sm + 4 * W_BOX + (mr & 3) * M_BOX + (mr >> 2) * P;
+  Cursor nx(n0, n1, K);
+  int y[4], i[4], j[4];
+  bool ok[4];
+  float v1[4], v2[4];
+  const float *r1 = o1, *r2 = o2;
+  auto unit_start = [&]() {
+    const int b = nx.b0 + mr;
+    r1 = o1 + (size_t)b * d1;
+    r2 = o2 + (size_t)b * d2;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      y[c] = 4 * mq + c - tau;
+      ok[c] = has_mq && b < B && y[c] >= 0 && y[c] < CS;
+      const int n = n0 + max(y[c], 0);
+      i[c] = n / d2;
+      j[c] = n - i[c] * d2;
+    }
+  };
+  auto fetch = [&]() {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const bool in = ok[c] && nx.c0 + y[c] < n1;
+      v1[c] = in ? __ldg(r1 + i[c]) : 0.f;
+      v2[c] = in ? __ldg(r2 + j[c]) : 0.f;
+    }
+  };
+  unit_start();
+  fetch();
+  __syncthreads();   // the barriers are set up; a's zeros are in
+
+  // Thread: batch rows bg + 2r (r < 8) and outputs k = 4*mk(q) + rk of the
+  // unit, mk(q) = (kg/4 + 4q + rk) mod 32 (q < 8), rk = kg mod 4: all of
+  // one residue, at one shift.
+  const int bg = lane & 1, kg = lane >> 1, rk = kg & 3;
+  const int shift = shift_of(rk);
+  const float* a_row = a_buf + shift * SA + bg * P;
+  const float* w_row = sm + rk * W_BOX;
+  Cursor cu(n0, n1, K);
+  int slot = 0, phase = 0;
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+
+#pragma unroll 1
+  for (int t = 0; t < n_t; ++t) {
+    float* a_s = a_buf + (t & 1) * A_BUF;
+    mbar_wait(full + slot, phase);
+    // a at each shift, a_s[s][b][x] = a[b, c0 + x - s]
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (has_mq && y[c] >= 0 && y[c] < CS) {
+        float v = v1[c] * v2[c];
+        if (kMasked && v != 0.f) v *= m_s[slot * STAGE + 4 * mq + c];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) a_s[s * SA + mr * P + y[c] + s] = v;
+      }
+    }
+    __syncthreads();   // stage t and a are in; stage t-1's slot is free
+    if (tid == 0 && t + NST - 1 < n_t) {
+      // the generic-proxy reads of that slot are done before TMA rewrites it
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      load();
+    }
+    if (t + 1 < n_t) {
+      if (nx.next()) {
+        unit_start();
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          for (j[c] += CS; j[c] >= d2; j[c] -= d2) ++i[c];
+      }
+      fetch();
+    }
+
+    const int valid = min(CS, n1 - cu.c0);
+#pragma unroll
+    for (int h = 0; h < QPW; ++h) {
+      const int qd = warp + 8 * h;   // this warp's quad
+      if (4 * qd - 3 >= valid) continue;   // it holds no column
+      const float* ar = a_row + (t & 1) * A_BUF + 4 * qd;
+      const float* wr = w_row + slot * STAGE + 4 * qd;
+      float4 av[8], wv[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        av[r] = *reinterpret_cast<const float4*>(ar + 2 * r * P);
+        wv[r] = *reinterpret_cast<const float4*>(
+            wr + ((kg >> 2) + 4 * r + rk & 31) * P);
+      }
+      // column by column, so the 64 FMAs of a column are independent
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float a = reinterpret_cast<const float*>(&av[r])[c];
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            acc[r][q] = fmaf(a, reinterpret_cast<const float*>(&wv[q])[c],
+                             acc[r][q]);
+        }
+    }
+
+    if (cu.last()) {   // the unit's last stage: add the warps in order
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int k = 4 * ((kg >> 2) + 4 * q + rk & 31) + rk;
+          red[(warp * BT + bg + 2 * r) * RP + k] = acc[r][q];
+          acc[r][q] = 0.f;
+        }
+      __syncthreads();
+      float* out = part + ((size_t)blockIdx.x * B + cu.b0) * K + cu.k0;
+#pragma unroll
+      for (int e = 4 * tid; e < BT * KT; e += 4 * kThreads) {
+        const int bb = e / KT, kk = e % KT;
+        float4 v = *reinterpret_cast<const float4*>(red + bb * RP + kk);
+#pragma unroll
+        for (int q = 1; q < 8; ++q) {
+          const float4 u =
+              *reinterpret_cast<const float4*>(red + (q * BT + bb) * RP + kk);
+          v = make_float4(v.x + u.x, v.y + u.y, v.z + u.z, v.w + u.w);
+        }
+        if (cu.b0 + bb < B) {
+          const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (cu.k0 + kk + c < K) out[bb * K + kk + c] = vs[c];
+        }
+      }
+      // red is written again only after the next stage's barrier
+    }
+    cu.next();
+    if (++slot == NST) slot = 0, phase ^= 1;
+  }
+}
+
+// y[b, k] = bias[k] + sum over blocks g of part[g, b, k]: a block per 16
+// consecutive outputs; thread (slice, o) sums g = slice, slice + 16, ...
+// for output o, then the 16 slice sums are added in order.
+constexpr int kReduceThreads = 256;
+constexpr int kReduceOuts = 16;
+constexpr int kSlices = kReduceThreads / kReduceOuts;
+
+__global__ void __launch_bounds__(kReduceThreads)
+kron_reduce_kernel(const float* __restrict__ part,
+                   const float* __restrict__ bias, float* __restrict__ y,
+                   int B, int K, int G) {
+  __shared__ float red[kSlices][kReduceOuts];
+  const int o = threadIdx.x % kReduceOuts, slice = threadIdx.x / kReduceOuts;
+  const int idx = blockIdx.x * kReduceOuts + o, bk = B * K;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");   // part is written
+  float s = 0.f;
+  if (idx < bk) {
+#pragma unroll 8
+    for (int g = slice; g < G; g += kSlices) s += part[(size_t)g * bk + idx];
+  }
+  red[slice][o] = s;
+  __syncthreads();
+  if (threadIdx.x < kReduceOuts && idx < bk) {
+    float t = red[0][o];
+#pragma unroll
+    for (int q = 1; q < kSlices; ++q) t += red[q][o];
+    y[idx] = t + bias[idx % K];
+  }
+}
+
+// ------------------------------------------------------------- host side
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// Set up once per process and device, not per launch: the SM count, the
+// main kernels' shared-memory limit, and `cuTensorMapEncodeTiled` (reached
+// through the runtime, so the library needs no -lcuda).
+struct Setup {
+  cudaError_t err = cudaSuccess;
+  int sms = 0;
+  EncodeTiled encode = nullptr;
+};
+
+Setup make_setup(int dev) {
+  Setup s;
+  if ((s.err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+    return s;
+  if ((s.err = cudaFuncSetAttribute(
+           kron_gemm_kernel<false>,
+           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM)) !=
+      cudaSuccess)
+    return s;
+  if ((s.err = cudaFuncSetAttribute(
+           kron_gemm_kernel<true>,
+           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM)) !=
+      cudaSuccess)
+    return s;
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  s.err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn,
+                                           12000, cudaEnableDefault, &found);
+  if (s.err == cudaSuccess && (found != cudaDriverEntryPointSuccess || !fn))
+    s.err = cudaErrorSymbolNotFound;
+  s.encode = reinterpret_cast<EncodeTiled>(fn);
+  return s;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+Setup setup() {
+  static std::once_flag once[MAX_DEVICES];
+  static Setup done[MAX_DEVICES];
+  Setup s;
+  int dev = 0;
+  if ((s.err = cudaGetDevice(&dev)) != cudaSuccess) return s;
+  if (dev < 0 || dev >= MAX_DEVICES) {
+    s.err = cudaErrorInvalidDevice;
+    return s;
+  }
+  std::call_once(once[dev], [dev] { done[dev] = make_setup(dev); });
+  return done[dev];
+}
+
+// Columns per block and the number of blocks, one per SM at most, that
+// cover N columns.
+void split(int N, int sms, int& cols, int& blocks) {
+  cols = (N + sms - 1) / sms;
+  blocks = (N + cols - 1) / cols;
+}
+
+// The maps of the rows r, r + 4, ... of a row-major [rows, N] fp32 tensor
+// at the 16-byte aligned p, for each residue r that has a row (bit r of
+// the result): based at the aligned float at or before row r's start, rows
+// 4*N floats apart, a box of P floats x `box_rows` rows; what lies past
+// the tensor loads as zeros.
+int encode_maps(EncodeTiled encode, CUtensorMap* maps, const float* p,
+                int rows, int N, int box_rows, cudaError_t& err) {
+  int valid = 0;
+  for (int r = 0; r < 4 && r < rows; ++r) {
+    const long long start = (long long)r * N, shift = start & 3;
+    const cuuint64_t dims[2] = {(cuuint64_t)(N + shift),
+                                (cuuint64_t)((rows - r + 3) / 4)};
+    const cuuint64_t strides[1] = {(cuuint64_t)N * 16};
+    const cuuint32_t box[2] = {(cuuint32_t)P, (cuuint32_t)box_rows};
+    const cuuint32_t elem[2] = {1, 1};
+    const CUresult res = encode(
+        maps + r, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+        const_cast<float*>(p + (start - shift)), dims, strides, box, elem,
+        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (res != CUDA_SUCCESS) err = cudaErrorInvalidValue;
+    valid |= 1 << r;
+  }
+  return valid;
+}
+
+// The same, from a cache keyed by address and shape (a map depends on
+// nothing else), so that a call with W, or a mask at an address the
+// allocator hands out again, encodes nothing.
+int residue_maps(EncodeTiled encode, CUtensorMap* maps, const float* p,
+                 int rows, int N, int box_rows, cudaError_t& err) {
+  struct Entry {
+    const float* p = nullptr;
+    int rows = 0, N = 0, box_rows = 0, valid = 0;
+    CUtensorMap maps[4];
+  };
+  constexpr int kEntries = 16;
+  static std::mutex mu;
+  static Entry cache[kEntries];
+  static int next = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : cache)
+    if (e.p == p && e.rows == rows && e.N == N && e.box_rows == box_rows) {
+      for (int r = 0; r < 4; ++r) maps[r] = e.maps[r];
+      return e.valid;
+    }
+  const int valid = encode_maps(encode, maps, p, rows, N, box_rows, err);
+  if (err == cudaSuccess) {
+    Entry& e = cache[next];
+    next = (next + 1) % kEntries;
+    e.p = p, e.rows = rows, e.N = N, e.box_rows = box_rows, e.valid = valid;
+    for (int r = 0; r < 4; ++r) e.maps[r] = maps[r];
+  }
+  return valid;
+}
+
+template <bool kMasked>
+int launch(const float* o1, const float* o2, const float* w,
+           const float* bias, const float* m, float* part, float* y, int B,
+           int d1, int d2, int K, void* stream) {
+  const Setup s = setup();
+  if (s.err != cudaSuccess) return (int)s.err;
+  const long long n = (long long)d1 * d2;
+  if (B <= 0 || K <= 0 || n <= 0 || n > INT_MAX - 4 ||
+      (long long)B * K > INT_MAX || ((uintptr_t)w & 15) ||
+      (kMasked && ((uintptr_t)m & 15)))
+    return (int)cudaErrorInvalidValue;
+  int cols, blocks;
+  split((int)n, s.sms, cols, blocks);
+  Maps maps = {};
+  cudaError_t err = cudaSuccess;
+  const int w_maps = residue_maps(s.encode, maps.w, w, K, (int)n, KT / 4, err);
+  const int m_maps =
+      kMasked ? residue_maps(s.encode, maps.m, m, B, (int)n, BT / 4, err) : 0;
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  kron_gemm_kernel<kMasked><<<blocks, kThreads, SMEM, st>>>(
+      maps, o1, o2, part, B, d1, d2, K, cols, w_maps, m_maps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((B * K + kReduceOuts - 1) / kReduceOuts);
+  cfg.blockDim = dim3(kReduceThreads);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kron_reduce_kernel, (const float*)part, bias,
+                           y, B, K, blocks);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` (PyTorch's current stream, passed as a pointer) of
-// the current device, which the caller sets to the one holding the tensors.
-// Returns cudaGetLastError() after the launch: 0 when it was accepted.
+// Blocks of a launch over d1*d2 columns on the current device: the caller
+// holds `part` as [blocks, B, K] floats.  A negative value is minus a CUDA
+// error.
+int kron_blocks(int d1, int d2) {
+  const Setup s = setup();
+  if (s.err != cudaSuccess) return -(int)s.err;
+  const long long n = (long long)d1 * d2;
+  if (n <= 0 || n > INT_MAX - 4) return -(int)cudaErrorInvalidValue;
+  int cols, blocks;
+  split((int)n, s.sms, cols, blocks);
+  return blocks;
+}
+
+// Launch on `stream` (PyTorch's current stream, passed as a pointer) of the
+// current device, which the caller sets to the one holding the tensors.
+// All tensors fp32 and contiguous, W (and m) 16-byte aligned; `part` is
+// scratch of kron_blocks(d1, d2) * B * K floats.  Returns the first CUDA
+// error of the set-up and the two launches: 0 when both were accepted.
 int kron_fwd(const float* o1, const float* o2, const float* w,
-             const float* bias, float* y, int B, int d1, int d2, int K,
-             void* stream) {
-  kron_fwd_kernel<<<K, kThreads, 0, (cudaStream_t)stream>>>(
-      o1, o2, w, bias, y, B, d1, d2, K);
-  return (int)cudaGetLastError();
+             const float* bias, float* part, float* y, int B, int d1, int d2,
+             int K, void* stream) {
+  return launch<false>(o1, o2, w, bias, nullptr, part, y, B, d1, d2, K,
+                       stream);
+}
+
+// The same with the dropout mask m [B, d1*d2] on the Kronecker vector.
+int kron_train_fwd(const float* o1, const float* o2, const float* w,
+                   const float* bias, const float* m, float* part, float* y,
+                   int B, int d1, int d2, int K, void* stream) {
+  return launch<true>(o1, o2, w, bias, m, part, y, B, d1, d2, K, stream);
 }
 
 const char* kron_error_string(int err) {

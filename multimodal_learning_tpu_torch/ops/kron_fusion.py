@@ -7,16 +7,21 @@ floats at the paper width, through a Linear whose weight W is read in place,
 in its torch layout [K, d1*d2].  Four kernels, each replacing a Pallas
 kernel of ``multimodal_learning_tpu/ops/kron_fusion.py``:
 
-- ``kron_matmul`` (``csrc/kron_fusion.cu``, ``_fwd_kernel``): the eval
+- ``kron_matmul`` (``csrc/kron_fusion.cu:kron_fwd``, ``_fwd_kernel``): the eval
   contraction ``y[b, k] = sum_i o1[b, i] sum_j o2[b, j] W[k, i*d2 + j] +
   bias[k]``, differentiable: its backward runs ``kron_bwd_dw``
   (``csrc/kron_bwd.cu``, ``_bwd_dw_kernel``) for the weight and
   ``kron_bwd_dvec`` (``_bwd_dvec_kernel``) for o1 and o2, as the JAX
   package's custom VJP does; ``db = g.sum(0)`` stays a torch op.
-- ``kron_matmul_dropout`` (``csrc/kron_train.cu``, ``_fwd_train_kernel``):
-  the train contraction with the dropout mask ``maskf`` on the Kronecker
-  vector, ``y = ((o1 (x) o2) * maskf) W^T + bias``.  Its backward is plain
-  torch, as the JAX package's ``_kron_dropout_bwd`` is XLA and not Pallas.
+- ``kron_matmul_dropout`` (``csrc/kron_fusion.cu:kron_train_fwd``,
+  ``_fwd_train_kernel``): the train contraction with the dropout mask
+  ``maskf`` on the Kronecker vector, ``y = ((o1 (x) o2) * maskf) W^T +
+  bias``.  Its backward is plain torch, as the JAX package's
+  ``_kron_dropout_bwd`` is XLA and not Pallas.
+
+The two forwards are one split-column GEMM kernel, with and without the
+mask; its per-block partial sums go to a scratch tensor cached per device
+and stream (``_partials``), so a call allocates only its output.
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version only for CPU tensors; any other device raises.  Each counts its
@@ -82,14 +87,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # Each library's C functions: pointers and the stream as c_void_p (ctypes
 # would cut a bare int to 32 bits), dimensions as c_int; all return int.
 _API = {
-    "kron_fusion": {"kron_fwd": [_P] * 5 + [_I] * 4 + [_P]},
-    "kron_train": {"kron_train_fwd": [_P] * 7 + [_I] * 4 + [_P],
-                   "kron_train_chunks": [_I, _I]},
+    "kron_fusion": {"kron_fwd": [_P] * 6 + [_I] * 4 + [_P],
+                    "kron_train_fwd": [_P] * 7 + [_I] * 4 + [_P],
+                    "kron_blocks": [_I, _I]},
     "kron_bwd": {"kron_bwd_dw": [_P] * 4 + [_I] * 4 + [_P],
                  "kron_bwd_dvec": [_P] * 7 + [_I] * 4 + [_P]},
 }
 _ERROR_STRING = {"kron_fusion": "kron_error_string",
-                 "kron_train": "kron_train_error_string",
                  "kron_bwd": "kron_bwd_error_string"}
 _typed = set()
 
@@ -157,19 +161,62 @@ def _device_of(what: str, *tensors) -> str:
     return "cuda"
 
 
-def _fwd_launch(o1, o2, weight, bias) -> torch.Tensor:
+_scratch: dict = {}
+_blocks: dict = {}
+
+
+def _partials(device: torch.device, stream: int, numel: int
+              ) -> torch.Tensor:
+    """Scratch for the forward kernels' per-block partial sums: one tensor
+    per device and stream, grown to the largest call and never shrunk, so
+    a call allocates nothing for it.  Calls on one stream run in order, so
+    they may share it."""
+    buf = _scratch.get((device, stream))
+    if buf is None or buf.numel() < numel:
+        buf = _scratch[device, stream] = torch.empty(
+            numel, device=device, dtype=torch.float32)
+    return buf
+
+
+def _fwd_launch(o1, o2, weight, bias, maskf=None) -> torch.Tensor:
+    """B2 (no mask) or B1 (``maskf``) on the card."""
     b, d1 = o1.shape
     d2, k = o2.shape[1], weight.shape[0]
     y = torch.empty((b, k), device=o1.device, dtype=torch.float32)
     if b == 0 or k == 0:
         return y
+    if d1 * d2 == 0:
+        return y.copy_(bias.expand(b, k))
+    what = "kron_matmul" if maskf is None else "kron_matmul_dropout"
+    # the kernel's tensor maps need W and the mask 16-byte aligned: a view
+    # that is not is copied (PyTorch's own allocations always are)
+    if weight.data_ptr() % 16:
+        weight = weight.clone()
+    if maskf is not None and maskf.data_ptr() % 16:
+        maskf = maskf.clone()
     lib = _lib("kron_fusion")
     with torch.cuda.device(o1.device):
-        err = lib.kron_fwd(o1.data_ptr(), o2.data_ptr(), weight.data_ptr(),
-                           bias.data_ptr(), y.data_ptr(), b, d1, d2, k,
-                           _stream())
-    _raise_on("kron_fusion", lib, err, "kron_matmul")
-    kron_matmul.launches += 1
+        key = (o1.device, d1, d2)
+        if key not in _blocks:
+            blocks = lib.kron_blocks(d1, d2)
+            _raise_on("kron_fusion", lib, max(-blocks, 0), what)
+            _blocks[key] = blocks
+        stream = _stream()
+        part = _partials(o1.device, stream, _blocks[key] * b * k)
+        ptrs = [o1.data_ptr(), o2.data_ptr(), weight.data_ptr(),
+                bias.data_ptr()]
+        if maskf is None:
+            err = lib.kron_fwd(*ptrs, part.data_ptr(), y.data_ptr(), b, d1,
+                               d2, k, stream)
+        else:
+            err = lib.kron_train_fwd(*ptrs, maskf.data_ptr(),
+                                     part.data_ptr(), y.data_ptr(), b, d1,
+                                     d2, k, stream)
+    _raise_on("kron_fusion", lib, err, what)
+    if maskf is None:
+        kron_matmul.launches += 1
+    else:
+        kron_matmul_dropout.launches += 1
     return y
 
 
@@ -264,27 +311,6 @@ def kron_matmul(o1: torch.Tensor, o2: torch.Tensor, weight: torch.Tensor,
     return _KronMatmul.apply(o1, o2, weight, bias)
 
 
-def _train_launch(o1, o2, weight, bias, maskf) -> torch.Tensor:
-    b, d1 = o1.shape
-    d2, k = o2.shape[1], weight.shape[0]
-    y = torch.empty((b, k), device=o1.device, dtype=torch.float32)
-    if b == 0 or k == 0:
-        return y
-    if d1 * d2 == 0:
-        return y.copy_(bias.expand(b, k))
-    lib = _lib("kron_train")
-    part = torch.empty((lib.kron_train_chunks(d1, d2), b, k),
-                       device=o1.device, dtype=torch.float32)
-    with torch.cuda.device(o1.device):
-        err = lib.kron_train_fwd(o1.data_ptr(), o2.data_ptr(),
-                                 weight.data_ptr(), bias.data_ptr(),
-                                 maskf.data_ptr(), part.data_ptr(),
-                                 y.data_ptr(), b, d1, d2, k, _stream())
-    _raise_on("kron_train", lib, err, "kron_matmul_dropout")
-    kron_matmul_dropout.launches += 1
-    return y
-
-
 class _KronMatmulDropout(torch.autograd.Function):
     """``kron_matmul_dropout`` on CUDA: forward B1; backward in torch ops,
     as ``_kron_dropout_bwd`` of the JAX package is XLA: with
@@ -295,7 +321,7 @@ class _KronMatmulDropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, o1, o2, weight, bias, maskf):
         ctx.save_for_backward(o1, o2, weight, maskf)
-        return _train_launch(o1, o2, weight, bias, maskf)
+        return _fwd_launch(o1, o2, weight, bias, maskf)
 
     @staticmethod
     def backward(ctx, g):

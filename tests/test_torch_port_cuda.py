@@ -21,6 +21,11 @@ from multimodal_learning_tpu_torch.ops import kron_fusion, paired_conv
 
 SHAPES = [(16, 129, 129, 128), (1, 129, 129, 128), (37, 129, 129, 128),
           (4, 9, 9, 16), (3, 200, 170, 33)]
+# the forward kernels (B2, B1) also at fewer columns than blocks (N = 15),
+# N % 4 == 0 (every row at shift 0), and several batch tiles with K beyond
+# one k tile
+FWD_SHAPES = SHAPES + [(2, 3, 5, 7), (16, 128, 128, 128),
+                       (64, 129, 129, 256)]
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
@@ -47,7 +52,7 @@ def _mask(B, n, dev, keep=0.75, seed=1):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", FWD_SHAPES)
 def test_kron_kernel_matches_plain(cuda, shape):
     args = _inputs(*shape, cuda)
     before = kron_fusion.kron_matmul.launches
@@ -87,7 +92,7 @@ def test_kron_backward_skips_b3_without_a_weight_gradient(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", FWD_SHAPES)
 def test_kron_dropout_kernel_matches_plain(cuda, shape):
     """B1 forward against the plain version, and its torch backward against
     autograd through the plain version, on the same mask."""
@@ -104,6 +109,62 @@ def test_kron_dropout_kernel_matches_plain(cuda, shape):
                           torch.autograd.grad(got, args, g),
                           torch.autograd.grad(want, args, g)):
         torch.testing.assert_close(a, b, **TOL, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape", [(16, 129, 129, 128), (2, 3, 5, 7),
+                                   (16, 128, 128, 128), (64, 129, 129, 256)])
+def test_kron_forward_kernels_are_bitwise_reproducible(cuda, shape, masked):
+    """Partial sums added in a fixed order of column ranges, no atomics:
+    two launches of B2 (B1 with ``masked``) give the same bits."""
+    args = _inputs(*shape, cuda, seed=4)
+    if masked:
+        args.append(_mask(shape[0], shape[1] * shape[2], cuda))
+    fn = (kron_fusion.kron_matmul_dropout if masked
+          else kron_fusion.kron_matmul)
+    first, second = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_kron_forward_takes_views_that_are_not_16_byte_aligned(cuda, masked):
+    """The kernel's tensor maps need W and the mask 16-byte aligned; the
+    wrapper copies a view that is not, and the result is the same."""
+    B, d1, d2, K = 4, 9, 9, 16
+    o1, o2, w, b = _inputs(B, d1, d2, K, cuda, seed=6)
+    w_view = torch.empty(K * d1 * d2 + 1, device=cuda)[1:].view(K, d1 * d2)
+    w_view.copy_(w)
+    args = [o1, o2, w_view, b]
+    if masked:
+        m = _mask(B, d1 * d2, cuda)
+        m_view = torch.empty(m.numel() + 1, device=cuda)[1:].view_as(m)
+        args.append(m_view.copy_(m))
+    assert w_view.data_ptr() % 16
+    fn, plain = ((kron_fusion.kron_matmul_dropout,
+                  kron_fusion.kron_matmul_dropout_plain) if masked else
+                 (kron_fusion.kron_matmul, kron_fusion.kron_matmul_plain))
+    torch.testing.assert_close(fn(*args), plain(*args), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_kron_forward_allocates_only_its_output(cuda, masked):
+    """The partials' scratch is cached per device and stream: after the
+    first call, a call allocates one tensor, its output."""
+    args = _inputs(16, 129, 129, 128, cuda, seed=5)
+    if masked:
+        args.append(_mask(16, 129 * 129, cuda))
+    fn = (kron_fusion.kron_matmul_dropout if masked
+          else kron_fusion.kron_matmul)
+    with torch.no_grad():
+        fn(*args)
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        y = fn(*args)
+        after = torch.cuda.memory_stats()["allocation.all.allocated"]
+    assert after - before == 1 and y.shape == (16, 128)
 
 
 @pytest.mark.cuda

@@ -5,6 +5,8 @@ On the CPU the port's wrapper takes its plain version; the CUDA kernel is
 held against that plain version on the card (``test_torch_port_cuda.py``,
 ``chip_smoke.py``).  Tolerance: the JAX kernel tests' rtol 1e-4, atol 1e-5,
 both sides fp32."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -151,3 +153,48 @@ def test_kron_matmul_dropout_matches_jax(B, d1, d2, K):
         ref = np.asarray(ref).T if name == "weight" else np.asarray(ref)
         np.testing.assert_allclose(arg.grad.numpy(), ref, rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("B,d1,d2,K", [(2, 3, 5, 7), (4, 9, 9, 16)])
+def test_kron_matmul_dropout_plain_with_ones_mask_is_kron_matmul_plain(
+        B, d1, d2, K):
+    """With an all-ones mask the masked train contraction is the eval
+    contraction: the identity that lets one CUDA kernel serve both (B1 with
+    the mask, B2 without)."""
+    o1, o2, w, b = _inputs(B, d1, d2, K, seed=7 * B + K)
+    args = [torch.from_numpy(a) for a in (o1, o2, _linear_layout(w), b)]
+    ones = torch.ones(B, d1 * d2)
+    torch.testing.assert_close(port_kf.kron_matmul_dropout_plain(*args, ones),
+                               port_kf.kron_matmul_plain(*args),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_partials_scratch_is_cached_per_device_and_stream():
+    """The forward kernels' scratch is made once per device and stream and
+    grown, never shrunk, so a call allocates only its output."""
+    cpu = torch.device("cpu")
+    first = port_kf._partials(cpu, -1, 100)
+    assert first.numel() == 100 and first.dtype == torch.float32
+    assert port_kf._partials(cpu, -1, 60) is first
+    grown = port_kf._partials(cpu, -1, 300)
+    assert grown.numel() == 300 and port_kf._partials(cpu, -1, 100) is grown
+    assert port_kf._partials(cpu, -2, 10) is not grown
+    for key in [(cpu, -1), (cpu, -2)]:
+        del port_kf._scratch[key]
+
+
+def test_library_path_covers_shared_headers(tmp_path, monkeypatch):
+    """An edited header gives a new library name, so a stale build is never
+    loaded; an unrelated source does not."""
+    from multimodal_learning_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    (tmp_path / "k.cuh").write_text("// v1\n")
+    (tmp_path / "other.cu").write_text("// other\n")
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "other.cu").write_text("// other, edited\n")
+    assert _build.library_path("k") == first
+    (tmp_path / "k.cuh").write_text("// v2\n")
+    assert _build.library_path("k") != first
+    assert os.path.basename(first).startswith("libk-")
