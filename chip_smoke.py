@@ -13,7 +13,10 @@ Phases, each of which raises on failure (nothing is caught):
    eval contraction B2 and the masked train contraction B1 (one split-column
    GEMM kernel; also at fewer columns than blocks, N % 4 == 0 and several
    batch and k tiles, and bitwise equal on a second launch), B1's torch
-   backward, and B3 and B4 through ``kron_matmul(...).backward``;
+   backward, B3 and B4 through ``kron_matmul(...).backward``, and B3 and B4
+   through their wrappers at ``BWD_SHAPES`` (those shapes plus K = 33 at
+   the paper width and a batch of 70 at K = 512), bitwise equal on a second
+   launch;
 4. drives the serving path end to end at the pofusion teacher's full width
    (ResNet18 on 512^2 patches + MaxNet + Kronecker fusion, path_dim =
    omic_dim = mmhid = 128, bf16 encoders, batch 16) with seeded random
@@ -21,7 +24,9 @@ Phases, each of which raises on failure (nothing is caught):
    ``cli.export_model`` -> ``cli.predict`` on 20 synthetic 600x600 PNGs and
    an omic CSV, counting the kernels' launches;
 5. cross-checks the same weights' float32 forward on the card (kernel path,
-   TF32 off) against the CPU (plain path);
+   TF32 off) against the CPU (plain path), and the float32 saliency input
+   gradients (``masking.saliency_grads``, through B2 and B4 on the card)
+   likewise;
 6. times an empty launch (the timing floor), B2, its plain version, the
    one PyTorch call that computes the same function and the cuBLAS GEMM of
    the pre-formed Kronecker vector, and the serving forward, and breaks the
@@ -32,13 +37,17 @@ Phases, each of which raises on failure (nothing is caught):
    ``build_teacher_train_step``: 20 timed steps that must launch B1 twice
    each (student and EMA forward) with finite losses, then a profiled
    window of 3 steps that gives B1's time per step;
-8. runs the saliency pass of the masked step (eval forward under autograd,
-   NLL on ``pred_fuse``, backward to the inputs and the params), which must
-   launch B3 and B4;
+8. runs the masked teacher's saliency call, the ported
+   ``masking.superpixel_attention_mask`` on the trained teacher in eval mode
+   with its parameters frozen (NLL on ``pred_fuse``, batch 16, 512^2, 100
+   synthetic superpixels with a few ids left empty), which must launch B2
+   and B4 once and B3 never, as the JAX pass computes no weight gradient;
+   checks the masks and the gradients, and times the call and B4's share;
 9. cross-checks one fp32 train step on the card (kernel path, TF32 off)
    against the CPU (plain path) from the same state and views;
 10. times B1, B3 and B4 against their plain versions, a PyTorch call where
-    one computes the same function, and their bounds; B1 also against the
+    one computes the same function, and their bounds, L2-cold with the
+    10th-90th percentile spread of the 50 calls; B1 also against the
     cuBLAS GEMM of the pre-formed masked Kronecker vector;
 11. the train step of phase 7 again with ``--paired_conv True`` (the
     64-channel stage's convolutions through B5, ``ops/paired_conv.py``):
@@ -96,6 +105,9 @@ KRON_SHAPES = [(16, 129, 129, 128), (1, 129, 129, 128), (37, 129, 129, 128),
 # tiles with K beyond one k tile
 FWD_SHAPES = KRON_SHAPES + [(3, 200, 170, 33), (2, 3, 5, 7),
                             (16, 128, 128, 128), (64, 129, 129, 256)]
+# the backward kernels B3 and B4 also at K = 33 at the paper width, and at
+# a batch beyond one staged chunk of B3 and several g chunks of B4
+BWD_SHAPES = FWD_SHAPES + [(16, 129, 129, 33), (70, 9, 9, 512)]
 N_IMAGES = 20
 
 
@@ -117,26 +129,37 @@ def _kron_inputs(b, d1, d2, k, gen, dev):
     return [t.to(dev) for t in (o1, o2, w, bias)]
 
 
-def _time_ms(fn, n, cold, flush):
-    """Device time of ``fn()`` from CUDA events.  A sleep kernel queued
-    first keeps the device busy while the host enqueues, so host launch
-    overhead is not timed.  ``cold`` flushes the 50 MB L2 before each call
-    (median of per-call times); warm is the mean over back-to-back calls."""
+def _cold_times(fn, n, flush):
+    """Device time of each of ``n`` calls of ``fn()`` from CUDA events,
+    with the 50 MB L2 flushed before each.  A sleep kernel queued first
+    keeps the device busy while the host enqueues, so host launch overhead
+    is not timed."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     torch.cuda._sleep(int(4e5 * n))
+    evs = []
+    for _ in range(n):
+        flush.zero_()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        evs.append((s, e))
+    torch.cuda.synchronize()
+    return np.array([s.elapsed_time(e) for s, e in evs])
+
+
+def _time_ms(fn, n, cold, flush):
+    """Device time of ``fn()``: L2-cold, the median of ``_cold_times``;
+    warm, the mean over back-to-back calls (CUDA events, the host's
+    enqueue hidden behind a sleep kernel as there)."""
     if cold:
-        evs = []
-        for _ in range(n):
-            flush.zero_()
-            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            s.record()
-            fn()
-            e.record()
-            evs.append((s, e))
-        torch.cuda.synchronize()
-        return float(np.median([s.elapsed_time(e) for s, e in evs]))
+        return float(np.median(_cold_times(fn, n, flush)))
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(4e5 * n))
     s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     s.record()
     for _ in range(n):
@@ -268,6 +291,45 @@ def _check_train_kernels(gen, dev, card):
         print(f"{name} max_abs_err={err:.3e} over {len(KRON_SHAPES) + 1} "
               f"shapes (rtol 1e-4, atol 1e-5; {card})")
     return errs
+
+
+def _check_bwd_kernels(gen, dev, card):
+    """B3 and B4 through their wrappers against their plain versions at
+    ``BWD_SHAPES``, each launched twice on the same inputs, which must give
+    the same bits.  Returns the max abs error of each and the launches
+    these checks made."""
+    from multimodal_learning_tpu_torch.ops import kron_fusion as kf
+    errs = {"kron_bwd_dw": 0.0, "kron_bwd_dvec": 0.0}
+    n3, n4 = kf.kron_bwd_dw.launches, kf.kron_bwd_dvec.launches
+    for shape in BWD_SHAPES:
+        b, d1, d2, k = shape
+        o1, o2, w, _ = _kron_inputs(*shape, gen, dev)
+        g = torch.randn(b, k, generator=gen).to(dev)
+        with torch.inference_mode():
+            got = {"kron_bwd_dw": [kf.kron_bwd_dw(o1, o2, g)],
+                   "kron_bwd_dvec": list(kf.kron_bwd_dvec(o1, o2, w, g))}
+            again = {"kron_bwd_dw": [kf.kron_bwd_dw(o1, o2, g)],
+                     "kron_bwd_dvec": list(kf.kron_bwd_dvec(o1, o2, w, g))}
+            want = {"kron_bwd_dw": [kf.kron_bwd_dw_plain(o1, o2, g)],
+                    "kron_bwd_dvec": list(kf.kron_bwd_dvec_plain(o1, o2, w,
+                                                                 g))}
+        torch.cuda.synchronize()
+        for name in errs:
+            for a, a2, ref in zip(got[name], again[name], want[name]):
+                if not torch.equal(a, a2):
+                    raise RuntimeError(f"{name} {shape}: two launches on "
+                                       "the same inputs differ")
+                torch.testing.assert_close(a, ref, rtol=1e-4, atol=1e-5,
+                                           msg=f"{name} {shape}")
+                errs[name] = max(errs[name], (a - ref).abs().max().item())
+        print(f"backward kernels {shape}: B3 / B4 agree with their plain "
+              "versions, bitwise equal on a second launch (rtol 1e-4, atol "
+              f"1e-5; {card})")
+    for name, err in errs.items():
+        print(f"{name} max_abs_err={err:.3e} over {len(BWD_SHAPES)} shapes "
+              f"(rtol 1e-4, atol 1e-5; {card})")
+    return errs, {"kron_bwd_dw": kf.kron_bwd_dw.launches - n3,
+                  "kron_bwd_dvec": kf.kron_bwd_dvec.launches - n4}
 
 
 def _conv_inputs(shape, gen, dev, dtype):
@@ -572,34 +634,165 @@ def _train_cross_check(card, gen, dev, batch_size=4):
           f"(batch {batch_size}, 512^2; {card})")
 
 
-def _saliency_pass(state, batch, card):
-    """The masked step's ``cost_fn`` (``train/steps.py:396-403`` of the JAX
-    package): the eval forward of the full-width model under autograd, NLL
-    on ``pred_fuse``, backward to ``x_path``, ``x_omic`` and the params.
-    It must run B3 and B4.  Returns their launches."""
+def _superpixels(gen, b, size, cells=10, n_empty=3):
+    """Synthetic SLIC output (SLIC is not ported yet): [b, size, size] ids
+    of a cells x cells grid whose cut lines move by up to a quarter cell
+    per sample, drawn from ``gen``; ``n_empty`` cells of each sample take
+    a neighbour's id, so their own ids are empty, have mean 0 and tie in
+    the top-k."""
+    step = size / cells
+    out = []
+    for _ in range(b):
+        cuts = [torch.searchsorted(
+            torch.arange(1, cells) * step
+            + (torch.rand(cells - 1, generator=gen) - 0.5) * step / 2,
+            torch.arange(size) + 0.5) for _ in range(2)]
+        ids = cuts[0][:, None] * cells + cuts[1][None, :]
+        for cell in torch.randperm(cells * cells,
+                                   generator=gen)[:n_empty].tolist():
+            ids[ids == cell] = cell + 1 if cell % cells < cells - 1 \
+                else cell - 1
+        out.append(ids)
+    return torch.stack(out)
+
+
+def _saliency_pass(state, batch, card, gen, dev, n=5, n_prof=3):
+    """Phase 8, the masked teacher's saliency call as the JAX step makes it
+    (``train/steps.py:391-404`` of the JAX package): the ported
+    ``superpixel_attention_mask`` on the full-width teacher of phase 7 in
+    eval mode, its parameters frozen, with ``cost_fn`` the NLL on
+    ``pred_fuse``, view 1 of the batch and synthetic superpixels
+    (``num_superpixels``, ``Path_K`` and ``Omic_K`` at their defaults).
+    It must launch B2 and B4 once each and B3 never (the JAX pass takes
+    no weight gradient); the path mask must hold ``Path_K`` whole segments
+    per sample, the omic mask at least ``Omic_K`` features, and the input
+    gradients must be finite.  Times the call (CUDA events, median of
+    ``n``) and, with torch.profiler, B4's share of its kernel time.
+    Returns the launches of the counted call, its time, and B4's and all
+    kernels' time per call from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.losses import nll_loss
+    from multimodal_learning_tpu_torch.masking import (
+        frozen_params, saliency_grads, superpixel_attention_mask)
     from multimodal_learning_tpu_torch.ops import kron_fusion as kf
+    opt = _train_opt(Options)
     model = state.model.eval()
-    x_path = (batch["path_views"][:, 0].to(torch.bfloat16) / 127.5
-              - 1.0).requires_grad_()
-    x_omic = batch["omic"].clone().requires_grad_()
-    state.optimizer.zero_grad()
-    kf.kron_bwd_dw.launches = kf.kron_bwd_dvec.launches = 0
-    out = model(x_path=x_path, x_omic=x_omic)
-    nll_loss(out.pred_fuse, batch["g"]).backward()
-    torch.cuda.synchronize()
-    launches = (kf.kron_bwd_dw.launches, kf.kron_bwd_dvec.launches)
-    state.optimizer.zero_grad()
-    print(f"saliency pass: B3 launches={launches[0]}, B4 launches="
-          f"{launches[1]}; |d/dx_path| max {x_path.grad.abs().max():.3e}, "
-          f"|d/dx_omic| max {x_omic.grad.abs().max():.3e} ({card})")
-    if min(launches) == 0:
-        raise RuntimeError("the saliency pass did not launch B3 and B4")
-    for name, grad in (("x_path", x_path.grad), ("x_omic", x_omic.grad)):
-        if grad is None or not torch.isfinite(grad).all():
+    x_path = batch["path_views"][:, 0].to(torch.bfloat16) / 127.5 - 1.0
+    x_omic = batch["omic"]
+    b, size = x_path.shape[:2]
+    sp = _superpixels(gen, b, size).to(dev)
+
+    def cost_fn(xp, xo):
+        return nll_loss(model(x_path=xp, x_omic=xo).pred_fuse, batch["g"])
+
+    def call():
+        return superpixel_attention_mask(cost_fn, x_path, x_omic, sp,
+                                         opt.num_superpixels, opt.Path_K,
+                                         opt.Omic_K)
+
+    counters = {"kron_fwd": kf.kron_matmul, "kron_bwd_dw": kf.kron_bwd_dw,
+                "kron_bwd_dvec": kf.kron_bwd_dvec}
+    with frozen_params(model):
+        call()
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        path_mask, omic_mask = call()
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        ms = []
+        for _ in range(n):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            call()
+            e.record()
+            torch.cuda.synchronize()
+            ms.append(s.elapsed_time(e))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_prof):
+                call()
+            torch.cuda.synchronize()
+        g_path, g_omic = saliency_grads(cost_fn, x_path, x_omic)
+    model.train()
+    print(f"saliency pass: superpixel_attention_mask at batch {b}, {size}^2,"
+          f" {opt.num_superpixels} superpixels, Path_K {opt.Path_K}, Omic_K "
+          f"{opt.Omic_K}: launches {launches} ({card})")
+    if launches != {"kron_fwd": 1, "kron_bwd_dw": 0, "kron_bwd_dvec": 1}:
+        raise RuntimeError(f"the saliency call launched {launches}; it "
+                           "launches B2 and B4 once each and B3 never")
+    for s_ in range(b):
+        ids = torch.unique(sp[s_][path_mask[s_] == 1])
+        whole = torch.isin(sp[s_], ids).float()
+        if len(ids) != opt.Path_K or not torch.equal(whole, path_mask[s_]):
+            raise RuntimeError(f"sample {s_}: the path mask covers segments "
+                               f"{ids.tolist()}, not {opt.Path_K} whole ones")
+    if not (omic_mask.sum(1) >= opt.Omic_K).all():
+        raise RuntimeError("the omic mask has fewer than Omic_K features")
+    for name, grad in (("x_path", g_path), ("x_omic", g_omic)):
+        if not torch.isfinite(grad).all():
             raise RuntimeError(f"the saliency gradient to {name} is not "
                                "finite")
-    return launches
+    events = prof.key_averages()
+    dev_ms = sum(ev.self_device_time_total for ev in events) / n_prof / 1e3
+    b4_ms = sum(ev.self_device_time_total for ev in events
+                if "kron_dvec" in ev.key) / n_prof / 1e3
+    print(f"timing saliency: {np.median(ms):.4f} ms per call on the device "
+          f"clock (median of {n}; min {min(ms):.4f}, max {max(ms):.4f}); "
+          f"|d/dx_path| max {g_path.abs().max().item():.3e}, |d/dx_omic| max "
+          f"{g_omic.abs().max().item():.3e} ({card})")
+    if dev_ms == 0:
+        print("profile saliency: the profiler saw no device time; B4's share "
+              f"not measured ({card})")
+    else:
+        print(f"profile saliency: {dev_ms:.4f} ms of kernels per call, B4 "
+              f"(kron_dvec_kernel + kron_dvec_reduce_kernel) {b4_ms:.5f} ms, "
+              f"{100 * b4_ms / dev_ms:.3f}% of kernel time ({card})")
+    return launches, float(np.median(ms)), b4_ms, dev_ms
+
+
+def _saliency_cross_check(opt32, state, gen, card, batch_size=4):
+    """The fp32 saliency input gradients of the serving teacher (with
+    ``cut_fuse_grad`` off, so that the gradient crosses the fusion and B4)
+    on the card (kernel path, TF32 off) against the CPU (plain path,
+    oneDNN off), at the whole-model tolerance rtol 2e-3 / atol 5e-4, and
+    by the norm of the difference at 2e-3 of the CPU gradient's norm.  The
+    masks are not compared: near-ties may flip."""
+    from multimodal_learning_tpu_torch.losses import nll_loss
+    from multimodal_learning_tpu_torch.masking import (frozen_params,
+                                                       saliency_grads)
+    from multimodal_learning_tpu_torch.models import define_model
+    opt = opt32.replace(cut_fuse_grad=False)
+    x_path = torch.rand(batch_size, opt.input_size_path, opt.input_size_path,
+                        3, generator=gen) * 2 - 1
+    x_omic = torch.randn(batch_size, opt.input_size_omic, generator=gen)
+    labels = torch.randint(0, opt.label_dim, (batch_size,), generator=gen)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        m = define_model(opt)
+        m.load_state_dict(state)
+        m = m.to(where).eval()
+        y = labels.to(where)
+
+        def cost_fn(xp, xo):
+            return nll_loss(m(x_path=xp, x_omic=xo).pred_fuse, y)
+
+        with frozen_params(m), torch.backends.mkldnn.flags(enabled=False):
+            grads[where] = [t.cpu() for t in saliency_grads(
+                cost_fn, x_path.to(where), x_omic.to(where))]
+    for name, got, want in zip(("x_path", "x_omic"), grads["cuda"],
+                               grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=5e-4,
+                                   msg=f"saliency gradient to {name}")
+        rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+        if rel > 2e-3:
+            raise AssertionError(f"saliency gradient to {name}: |card - cpu|"
+                                 f" / |cpu| = {rel:.3e} > 2e-3")
+        print(f"fp32 saliency gradient card vs cpu, {name}: max_abs_err="
+              f"{(got - want).abs().max().item():.3e}, max |cpu| "
+              f"{want.abs().max().item():.3e}, |diff| / |cpu| = {rel:.3e} "
+              f"(batch {batch_size}, {opt.input_size_path}^2; {card})")
 
 
 def _time_train_kernels(gen, dev, card, flush):
@@ -608,7 +801,9 @@ def _time_train_kernels(gen, dev, card, flush):
     against the cuBLAS GEMM ``F.linear(a, w, bias)`` of the masked
     Kronecker vector a formed outside the timed call (TF32 off); and each
     kernel's bound from the bytes it must move and the operations it must
-    do.  Returns {name: (times, bound_ms, bound_by)}."""
+    do.  L2-cold times are medians of 50 calls, with the 10th and 90th
+    percentiles of the same calls as their spread.  Returns {name: (times,
+    bound_ms, bound_by, spread)}."""
     from torch.nn import functional as F
 
     from multimodal_learning_tpu_torch.ops import kron_fusion as kf
@@ -630,23 +825,26 @@ def _time_train_kernels(gen, dev, card, flush):
             lambda: kf.kron_bwd_dw(o1, o2, g),
             lambda: kf.kron_bwd_dw_plain(o1, o2, g),
             lambda: torch.einsum("bk,bi,bj->kij", g, o1, o2),
-            4 * (b * d1 + b * d2 + b * k + k * n), b * d1 * k + 2 * b * n * k),
+            4 * (b * d1 + b * d2 + b * k + k * n), b * n + 2 * b * n * k),
         "kron_bwd_dvec": (
             lambda: kf.kron_bwd_dvec(o1, o2, w, g),
             lambda: kf.kron_bwd_dvec_plain(o1, o2, w, g),
             None, 4 * (2 * b * d1 + 2 * b * d2 + b * k + k * n),
-            4 * b * n * k + 2 * b * k * (d1 + d2)),
+            2 * b * n * k + 4 * b * n),
     }
     out = {}
     with torch.inference_mode():
         for name, (kern, plain, lib, nbytes, flops) in cases.items():
-            times = {}
+            times, spread = {}, {}
             for which, fn in (("kernel", kern), ("plain", plain),
                               ("library", lib), ("gemm", gemm.get(name))):
                 if fn is None:
                     continue
-                for cold in (False, True):
-                    times[which, cold] = _time_ms(fn, 50, cold, flush)
+                times[which, False] = _time_ms(fn, 50, False, flush)
+                cold = _cold_times(fn, 50, flush)
+                times[which, True] = float(np.median(cold))
+                spread[which] = tuple(float(v) for v in
+                                      np.percentile(cold, [10, 90]))
             t_bytes = nbytes / H100_BYTES_PER_S
             t_ops = flops / H100_FP32_FLOP_PER_S
             bound_ms = 1e3 * max(t_bytes, t_ops)
@@ -657,15 +855,19 @@ def _time_train_kernels(gen, dev, card, flush):
                         print(f"timing {name} library_ms: none (no one "
                               "PyTorch call computes it)")
                     continue
+                lo, hi = spread[which]
                 print(f"timing {name} {which}_ms: L2-cold "
-                      f"{times[which, True]:.5f} L2-warm "
-                      f"{times[which, False]:.5f} (B={b}, d1={d1}, d2={d2}, "
-                      f"K={k}; {card})")
+                      f"{times[which, True]:.5f} (p10 {lo:.5f}, p90 "
+                      f"{hi:.5f}) L2-warm {times[which, False]:.5f} (B={b}, "
+                      f"d1={d1}, d2={d2}, K={k}; {card})")
             print(f"timing {name} bound_ms={bound_ms:.5f} by {bound_by}: "
                   f"{nbytes} bytes at 3.35 TB/s, {flops} flop at 67 TFLOP/s "
                   f"fp32; {bound_ms / times['kernel', True]:.4f} of the "
                   f"bound L2-cold ({card})")
-            out[name] = (times, bound_ms, bound_by)
+            gap = spread["plain"][0] - spread["kernel"][1]
+            print(f"timing {name}: the plain version's p10 minus the "
+                  f"kernel's p90, L2-cold: {gap:.5f} ms ({card})")
+            out[name] = (times, bound_ms, bound_by, spread)
     return out
 
 
@@ -846,6 +1048,9 @@ def main() -> int:
     train_errs = _check_train_kernels(gen, dev, card)
     train_errs["kron_train_fwd"] = max(train_errs["kron_train_fwd"],
                                        fwd_errs["kron_train_fwd"])
+    bwd_errs, check_launches = _check_bwd_kernels(gen, dev, card)
+    for name, err in bwd_errs.items():
+        train_errs[name] = max(train_errs[name], err)
     conv_errs = _check_conv_kernel(gen, dev, card)
 
     # 4. the serving path end to end at the teacher's full width
@@ -917,6 +1122,7 @@ def main() -> int:
         err = np.abs(outs["cuda"][k] - outs["cpu"][k]).max()
         print(f"fp32 card vs cpu {k} max_abs_err={err:.3e} "
               f"(rtol 2e-3, atol 5e-4; {card})")
+    _saliency_cross_check(opt32, state, gen, card)
 
     # 6. timing, with the card's name and power limit beside each number
     b, d1, d2, k = KRON_SHAPES[0]
@@ -978,7 +1184,8 @@ def main() -> int:
     # 7. the teacher's train path at full width, and 8. the saliency pass
     state, tbatch, train_launches, step = _train_path(card, gen, dev)
     b1_launches = train_launches["kron_matmul_dropout"]
-    b3_launches, b4_launches = _saliency_pass(state, tbatch, card)
+    sal_launches, sal_ms, sal_b4_ms, sal_dev_ms = _saliency_pass(
+        state, tbatch, card, gen, dev)
     # 9. one fp32 train step, card against CPU
     _train_cross_check(card, gen, dev)
     # 10. the train kernels' timing
@@ -1009,9 +1216,10 @@ def main() -> int:
     jax_kron = "multimodal_learning_tpu/ops/kron_fusion.py"
     for name, replaces, launches in (
             ("kron_train_fwd", f"{jax_kron}:164", b1_launches),
-            ("kron_bwd_dw", f"{jax_kron}:76", b3_launches),
-            ("kron_bwd_dvec", f"{jax_kron}:89", b4_launches)):
-        t, bound_ms, bound_by = ttimes[name]
+            ("kron_bwd_dw", f"{jax_kron}:76", sal_launches["kron_bwd_dw"]),
+            ("kron_bwd_dvec", f"{jax_kron}:89",
+             sal_launches["kron_bwd_dvec"])):
+        t, bound_ms, bound_by, spread = ttimes[name]
         src = ("kron_fusion.cu" if name == "kron_train_fwd"
                else "kron_bwd.cu")
         kernels.append({
@@ -1021,11 +1229,23 @@ def main() -> int:
             "max_abs_err": train_errs[name], "ms": t["kernel", True],
             "plain_ms": t["plain", True], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": t.get(("library", True))})
+        kernels[-1].update(
+            bound_share=bound_ms / t["kernel", True],
+            warm_ms=t["kernel", False], p10_ms=spread["kernel"][0],
+            p90_ms=spread["kernel"][1], plain_p10_ms=spread["plain"][0],
+            plain_p90_ms=spread["plain"][1])
         if name == "kron_train_fwd":
-            kernels[-1].update(
-                bound_share=bound_ms / t["kernel", True],
-                gemm_ms=t["gemm", True], warm_ms=t["kernel", False],
-                floor_ms=floor[True])
+            kernels[-1].update(gemm_ms=t["gemm", True], floor_ms=floor[True])
+        else:
+            kernels[-1]["check_launches"] = check_launches[name]
+        if name == "kron_bwd_dw":
+            kernels[-1]["launched_by"] = (
+                "checks and timing only: the saliency pass takes no weight "
+                "gradient (in the JAX package XLA drops the unused dW)")
+        if name == "kron_bwd_dvec":
+            kernels[-1].update(saliency_ms=sal_ms,
+                               saliency_kernel_ms=sal_dev_ms,
+                               saliency_b4_ms=sal_b4_ms)
     t, bound_ms, bound_by = ctimes[torch.bfloat16]
     t32, bound32, _ = ctimes[torch.float32]
     kernels.append({

@@ -8,7 +8,7 @@ keeping a plain PyTorch version of each kernel beside it for the CPU and as
 the test oracle.
 
 Ported so far (the pofusion teacher's serving path, train step and CV
-drivers):
+drivers, and the masked teacher's saliency masks):
 
 - ``config``    the ``Options`` flag surface (own copy)
 - ``models``    ResNet18 (with ``--paired_conv``), MaxNet, BilinearFusion,
@@ -21,6 +21,7 @@ drivers):
 - ``data``      CV splits, contrast sampling, the host loaders with device
                 prefetch, the native JPEG decoder, on-device augmentation
 - ``losses``    NLL, Cox, L1, pred-KD, DistillKL, SP, orth
+- ``masking``   the superpixel saliency masks of the masked teacher
 - ``contrast``  the classic CRD memory bank and NCE loss
 - ``train``     the teacher's train and eval steps, the fold loop, Adam and
                 the LR schedules (plateau included), EMA, and the

@@ -59,12 +59,9 @@
 //   while the main pass runs and wait at `griddepcontrol.wait`, so no launch
 //   gap remains.  No atomics: two launches on the same inputs give the same
 //   bits.
-#include <cuda.h>
-#include <cuda_runtime.h>
 #include <limits.h>
-#include <stdint.h>
 
-#include <mutex>
+#include "kron_tma.cuh"
 
 namespace {
 
@@ -96,33 +93,6 @@ static_assert(CS % 4 == 0, "shifts fixed within a block");
 struct Maps {   // tensor maps of W and m, one per residue of the row mod 4
   CUtensorMap w[4], m[4];
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int x, int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
-      "r"(smem_u32(bar))
-      : "memory");
-}
 
 // A block's stages in order: work units (batch tile b0, output tile k0),
 // each over the block's columns [n0, n1) in stages of CS, starting at c0.
@@ -173,14 +143,10 @@ kron_gemm_kernel(const __grid_constant__ Maps maps,
     const int bytes =
         __popc(w_maps) * W_BOX * 4 +
         (kMasked ? __popc(m_maps) * BT / 4 * P * 4 : 0);
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-            smem_u32(full + s_ld)),
-        "r"(bytes)
-        : "memory");
+    mbar_expect_tx(full + s_ld, bytes);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int x = ((r * (N & 3) & 3) + ld.c0) & ~3;   // see the maps
+      const int x = residue_box_x(r, N, ld.c0);
       if (w_maps >> r & 1)
         tma_load_2d(st + r * W_BOX, &maps.w[r], full + s_ld, x, ld.k0 / 4);
       if (kMasked && (m_maps >> r & 1))
@@ -193,18 +159,10 @@ kron_gemm_kernel(const __grid_constant__ Maps maps,
   if (tid == 0) {   // first, as the maps' first use waits for their fetch
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                       reinterpret_cast<uint64_t>(&maps.w[r]))
-                   : "memory");
-      if (kMasked)
-        asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                         reinterpret_cast<uint64_t>(&maps.m[r]))
-                     : "memory");
+      prefetch_tensormap(&maps.w[r]);
+      if (kMasked) prefetch_tensormap(&maps.m[r]);
     }
-    for (int s = 0; s < NST; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                       smem_u32(full + s))
-                   : "memory");
+    for (int s = 0; s < NST; ++s) mbar_init(full + s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int t = 0; t < NST - 1 && t < n_t; ++t) load();
   }
@@ -392,125 +350,19 @@ kron_reduce_kernel(const float* __restrict__ part,
 }
 
 // ------------------------------------------------------------- host side
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
 
-// Set up once per process and device, not per launch: the SM count, the
-// main kernels' shared-memory limit, and `cuTensorMapEncodeTiled` (reached
-// through the runtime, so the library needs no -lcuda).
-struct Setup {
-  cudaError_t err = cudaSuccess;
-  int sms = 0;
-  EncodeTiled encode = nullptr;
-};
-
-Setup make_setup(int dev) {
-  Setup s;
-  if ((s.err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
-    return s;
-  if ((s.err = cudaFuncSetAttribute(
-           kron_gemm_kernel<false>,
-           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM)) !=
-      cudaSuccess)
-    return s;
-  if ((s.err = cudaFuncSetAttribute(
-           kron_gemm_kernel<true>,
-           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM)) !=
-      cudaSuccess)
-    return s;
-  void* fn = nullptr;
-  cudaDriverEntryPointQueryResult found;
-  s.err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn,
-                                           12000, cudaEnableDefault, &found);
-  if (s.err == cudaSuccess && (found != cudaDriverEntryPointSuccess || !fn))
-    s.err = cudaErrorSymbolNotFound;
-  s.encode = reinterpret_cast<EncodeTiled>(fn);
-  return s;
-}
-
-constexpr int MAX_DEVICES = 64;
-
+// The set-up of the current device: the main kernels' shared-memory limit.
 Setup setup() {
-  static std::once_flag once[MAX_DEVICES];
-  static Setup done[MAX_DEVICES];
-  Setup s;
-  int dev = 0;
-  if ((s.err = cudaGetDevice(&dev)) != cudaSuccess) return s;
-  if (dev < 0 || dev >= MAX_DEVICES) {
-    s.err = cudaErrorInvalidDevice;
-    return s;
-  }
-  std::call_once(once[dev], [dev] { done[dev] = make_setup(dev); });
-  return done[dev];
-}
-
-// Columns per block and the number of blocks, one per SM at most, that
-// cover N columns.
-void split(int N, int sms, int& cols, int& blocks) {
-  cols = (N + sms - 1) / sms;
-  blocks = (N + cols - 1) / cols;
-}
-
-// The maps of the rows r, r + 4, ... of a row-major [rows, N] fp32 tensor
-// at the 16-byte aligned p, for each residue r that has a row (bit r of
-// the result): based at the aligned float at or before row r's start, rows
-// 4*N floats apart, a box of P floats x `box_rows` rows; what lies past
-// the tensor loads as zeros.
-int encode_maps(EncodeTiled encode, CUtensorMap* maps, const float* p,
-                int rows, int N, int box_rows, cudaError_t& err) {
-  int valid = 0;
-  for (int r = 0; r < 4 && r < rows; ++r) {
-    const long long start = (long long)r * N, shift = start & 3;
-    const cuuint64_t dims[2] = {(cuuint64_t)(N + shift),
-                                (cuuint64_t)((rows - r + 3) / 4)};
-    const cuuint64_t strides[1] = {(cuuint64_t)N * 16};
-    const cuuint32_t box[2] = {(cuuint32_t)P, (cuuint32_t)box_rows};
-    const cuuint32_t elem[2] = {1, 1};
-    const CUresult res = encode(
-        maps + r, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-        const_cast<float*>(p + (start - shift)), dims, strides, box, elem,
-        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    if (res != CUDA_SUCCESS) err = cudaErrorInvalidValue;
-    valid |= 1 << r;
-  }
-  return valid;
-}
-
-// The same, from a cache keyed by address and shape (a map depends on
-// nothing else), so that a call with W, or a mask at an address the
-// allocator hands out again, encodes nothing.
-int residue_maps(EncodeTiled encode, CUtensorMap* maps, const float* p,
-                 int rows, int N, int box_rows, cudaError_t& err) {
-  struct Entry {
-    const float* p = nullptr;
-    int rows = 0, N = 0, box_rows = 0, valid = 0;
-    CUtensorMap maps[4];
-  };
-  constexpr int kEntries = 16;
-  static std::mutex mu;
-  static Entry cache[kEntries];
-  static int next = 0;
-  std::lock_guard<std::mutex> lock(mu);
-  for (const Entry& e : cache)
-    if (e.p == p && e.rows == rows && e.N == N && e.box_rows == box_rows) {
-      for (int r = 0; r < 4; ++r) maps[r] = e.maps[r];
-      return e.valid;
-    }
-  const int valid = encode_maps(encode, maps, p, rows, N, box_rows, err);
-  if (err == cudaSuccess) {
-    Entry& e = cache[next];
-    next = (next + 1) % kEntries;
-    e.p = p, e.rows = rows, e.N = N, e.box_rows = box_rows, e.valid = valid;
-    for (int r = 0; r < 4; ++r) e.maps[r] = maps[r];
-  }
-  return valid;
+  return setup_once([](int) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kron_gemm_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kron_gemm_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)SMEM);
+    return err;
+  });
 }
 
 template <bool kMasked>
@@ -528,27 +380,20 @@ int launch(const float* o1, const float* o2, const float* w,
   split((int)n, s.sms, cols, blocks);
   Maps maps = {};
   cudaError_t err = cudaSuccess;
-  const int w_maps = residue_maps(s.encode, maps.w, w, K, (int)n, KT / 4, err);
+  const int w_maps = residue_maps(s.encode, maps.w, w, K, (int)n, P, KT / 4,
+                                   err);
   const int m_maps =
-      kMasked ? residue_maps(s.encode, maps.m, m, B, (int)n, BT / 4, err) : 0;
+      kMasked ? residue_maps(s.encode, maps.m, m, B, (int)n, P, BT / 4, err)
+              : 0;
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
   kron_gemm_kernel<kMasked><<<blocks, kThreads, SMEM, st>>>(
       maps, o1, o2, part, B, d1, d2, K, cols, w_maps, m_maps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((B * K + kReduceOuts - 1) / kReduceOuts);
-  cfg.blockDim = dim3(kReduceThreads);
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kron_reduce_kernel, (const float*)part, bias,
-                           y, B, K, blocks);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  return (int)launch_dependent(
+      kron_reduce_kernel, dim3((B * K + kReduceOuts - 1) / kReduceOuts),
+      dim3(kReduceThreads), st, (const float*)part, bias, y, B, K, blocks);
 }
 
 }  // namespace

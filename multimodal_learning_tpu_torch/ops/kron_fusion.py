@@ -20,8 +20,13 @@ kernel of ``multimodal_learning_tpu/ops/kron_fusion.py``:
   ``_kron_dropout_bwd`` is XLA and not Pallas.
 
 The two forwards are one split-column GEMM kernel, with and without the
-mask; its per-block partial sums go to a scratch tensor cached per device
-and stream (``_partials``), so a call allocates only its output.
+mask; ``kron_bwd_dvec`` streams W the same way (``csrc/kron_tma.cuh``).
+Their per-block partial sums go to a scratch tensor cached per device and
+stream (``_partials``), so a call allocates only its outputs.  The
+masked teacher's saliency pass takes input gradients only, with the
+parameters frozen, so ``kron_matmul``'s backward runs ``kron_bwd_dvec``
+and skips ``kron_bwd_dw``, as XLA drops the unused weight gradient in the
+JAX package.
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version only for CPU tensors; any other device raises.  Each counts its
@@ -83,15 +88,17 @@ def kron_matmul_dropout_plain(o1: torch.Tensor, o2: torch.Tensor,
 
 # ------------------------------------------------------------------ kernels
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # Each library's C functions: pointers and the stream as c_void_p (ctypes
-# would cut a bare int to 32 bits), dimensions as c_int; all return int.
+# would cut a bare int to 32 bits), dimensions as c_int; each returns an int
+# (a CUDA error, 0 for none) unless its result type is given.
 _API = {
     "kron_fusion": {"kron_fwd": [_P] * 6 + [_I] * 4 + [_P],
                     "kron_train_fwd": [_P] * 7 + [_I] * 4 + [_P],
                     "kron_blocks": [_I, _I]},
     "kron_bwd": {"kron_bwd_dw": [_P] * 4 + [_I] * 4 + [_P],
-                 "kron_bwd_dvec": [_P] * 7 + [_I] * 4 + [_P]},
+                 "kron_bwd_dvec": [_P] * 7 + [_I] * 4 + [_P],
+                 "kron_bwd_dvec_scratch": ([_I] * 3, _L)},
 }
 _ERROR_STRING = {"kron_fusion": "kron_error_string",
                  "kron_bwd": "kron_bwd_error_string"}
@@ -102,9 +109,10 @@ def _lib(name: str):
     """The built library of ``csrc/<name>.cu`` with its ctypes signatures."""
     lib = _build.load(name)
     if name not in _typed:
-        for fn, argtypes in _API[name].items():
+        for fn, sig in _API[name].items():
+            argtypes, restype = sig if isinstance(sig, tuple) else (sig, _I)
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = restype
         err_fn = getattr(lib, _ERROR_STRING[name])
         err_fn.argtypes, err_fn.restype = [_I], ctypes.c_char_p
         _typed.add(name)
@@ -162,20 +170,33 @@ def _device_of(what: str, *tensors) -> str:
 
 
 _scratch: dict = {}
-_blocks: dict = {}
+_sizes: dict = {}
 
 
 def _partials(device: torch.device, stream: int, numel: int
               ) -> torch.Tensor:
-    """Scratch for the forward kernels' per-block partial sums: one tensor
-    per device and stream, grown to the largest call and never shrunk, so
-    a call allocates nothing for it.  Calls on one stream run in order, so
-    they may share it."""
+    """Scratch for the kernels' per-block partial sums (B1, B2 and B4):
+    one tensor per device and stream, grown to the largest call and never
+    shrunk, so a call allocates nothing for it.  Calls on one stream run in
+    order, and each kernel's reduction pass has read the partials before
+    the next kernel on the stream starts, so they may share it."""
     buf = _scratch.get((device, stream))
     if buf is None or buf.numel() < numel:
         buf = _scratch[device, stream] = torch.empty(
             numel, device=device, dtype=torch.float32)
     return buf
+
+
+def _size(name: str, lib, what: str, fn: str, *args) -> int:
+    """``lib.fn(*args)`` on the current device, a size that depends only
+    on the device and the arguments, cached; a negative result is minus a
+    CUDA error."""
+    key = (torch.cuda.current_device(), fn, args)
+    if key not in _sizes:
+        size = getattr(lib, fn)(*args)
+        _raise_on(name, lib, max(-size, 0), what)
+        _sizes[key] = size
+    return _sizes[key]
 
 
 def _fwd_launch(o1, o2, weight, bias, maskf=None) -> torch.Tensor:
@@ -196,13 +217,9 @@ def _fwd_launch(o1, o2, weight, bias, maskf=None) -> torch.Tensor:
         maskf = maskf.clone()
     lib = _lib("kron_fusion")
     with torch.cuda.device(o1.device):
-        key = (o1.device, d1, d2)
-        if key not in _blocks:
-            blocks = lib.kron_blocks(d1, d2)
-            _raise_on("kron_fusion", lib, max(-blocks, 0), what)
-            _blocks[key] = blocks
+        blocks = _size("kron_fusion", lib, what, "kron_blocks", d1, d2)
         stream = _stream()
-        part = _partials(o1.device, stream, _blocks[key] * b * k)
+        part = _partials(o1.device, stream, blocks * b * k)
         ptrs = [o1.data_ptr(), o2.data_ptr(), weight.data_ptr(),
                 bias.data_ptr()]
         if maskf is None:
@@ -261,13 +278,18 @@ def kron_bwd_dvec(o1: torch.Tensor, o2: torch.Tensor, weight: torch.Tensor,
         return do1, do2
     if k == 0 or d1 * d2 == 0:
         return do1.zero_(), do2.zero_()
-    s = torch.empty((b, d1 * d2), device=o1.device, dtype=torch.float32)
+    if weight.data_ptr() % 16:   # the tensor maps need W 16-byte aligned
+        weight = weight.clone()
     lib = _lib("kron_bwd")
     with torch.cuda.device(o1.device):
+        stream = _stream()
+        part = _partials(o1.device, stream, _size(
+            "kron_bwd", lib, "kron_bwd_dvec", "kron_bwd_dvec_scratch", b, d1,
+            d2))
         err = lib.kron_bwd_dvec(o1.data_ptr(), o2.data_ptr(),
                                 weight.data_ptr(), g.data_ptr(),
-                                s.data_ptr(), do1.data_ptr(),
-                                do2.data_ptr(), b, d1, d2, k, _stream())
+                                part.data_ptr(), do1.data_ptr(),
+                                do2.data_ptr(), b, d1, d2, k, stream)
     _raise_on("kron_bwd", lib, err, "kron_bwd_dvec")
     kron_bwd_dvec.launches += 1
     return do1, do2

@@ -26,6 +26,9 @@ SHAPES = [(16, 129, 129, 128), (1, 129, 129, 128), (37, 129, 129, 128),
 # one k tile
 FWD_SHAPES = SHAPES + [(2, 3, 5, 7), (16, 128, 128, 128),
                        (64, 129, 129, 256)]
+# the backward kernels (B3, B4) also at K = 33 at the paper width, and at
+# a batch beyond one staged chunk of B3 and several g chunks of B4
+BWD_SHAPES = FWD_SHAPES + [(16, 129, 129, 33), (70, 9, 9, 512)]
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
@@ -168,7 +171,7 @@ def test_kron_forward_allocates_only_its_output(cuda, masked):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", BWD_SHAPES)
 def test_kron_bwd_kernels_match_plain(cuda, shape):
     o1, o2, w, _ = _inputs(*shape, cuda, seed=3)
     g = torch.randn(shape[0], shape[3], device=cuda)
@@ -177,6 +180,83 @@ def test_kron_bwd_kernels_match_plain(cuda, shape):
     for a, b in zip(kron_fusion.kron_bwd_dvec(o1, o2, w, g),
                     kron_fusion.kron_bwd_dvec_plain(o1, o2, w, g)):
         torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 129, 129, 128), (2, 3, 5, 7),
+                                   (3, 200, 170, 33), (70, 9, 9, 512)])
+def test_kron_bwd_kernels_are_bitwise_reproducible(cuda, shape):
+    """B3 sums over the batch in order; B4 sums each column over K in
+    order and its partials in the order of the blocks: two launches give
+    the same bits."""
+    o1, o2, w, _ = _inputs(*shape, cuda, seed=7)
+    g = torch.randn(shape[0], shape[3], device=cuda)
+    assert torch.equal(kron_fusion.kron_bwd_dw(o1, o2, g),
+                       kron_fusion.kron_bwd_dw(o1, o2, g))
+    for a, b in zip(kron_fusion.kron_bwd_dvec(o1, o2, w, g),
+                    kron_fusion.kron_bwd_dvec(o1, o2, w, g)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_kron_bwd_dvec_takes_a_weight_view_that_is_not_16_byte_aligned(cuda):
+    """B4's tensor maps need W 16-byte aligned; the wrapper copies a view
+    that is not, and the result is the same."""
+    o1, o2, w, _ = _inputs(4, 9, 9, 16, cuda, seed=10)
+    g = torch.randn(4, 16, device=cuda)
+    w_view = torch.empty(w.numel() + 1, device=cuda)[1:].view_as(w)
+    w_view.copy_(w)
+    assert w_view.data_ptr() % 16
+    for a, b in zip(kron_fusion.kron_bwd_dvec(o1, o2, w_view, g),
+                    kron_fusion.kron_bwd_dvec_plain(o1, o2, w, g)):
+        torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.cuda
+def test_kron_bwd_dvec_allocates_only_its_outputs(cuda):
+    """B4's partials go to the cached scratch: after the first call, a
+    call allocates two tensors, do1 and do2."""
+    o1, o2, w, _ = _inputs(16, 129, 129, 128, cuda, seed=8)
+    g = torch.randn(16, 128, device=cuda)
+    kron_fusion.kron_bwd_dvec(o1, o2, w, g)
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    do1, do2 = kron_fusion.kron_bwd_dvec(o1, o2, w, g)
+    after = torch.cuda.memory_stats()["allocation.all.allocated"]
+    assert after - before == 2 and do1.shape == do2.shape == (16, 129)
+
+
+@pytest.mark.cuda
+def test_saliency_launches_b4_once_and_b3_never(cuda):
+    """The masked teacher's saliency pass takes input gradients only, with
+    the parameters frozen: kron_matmul's backward runs B4 and skips B3, as
+    XLA drops the unused weight gradient in the JAX package."""
+    from multimodal_learning_tpu_torch.losses import nll_loss
+    from multimodal_learning_tpu_torch.masking import (
+        frozen_params, superpixel_attention_mask)
+    from multimodal_learning_tpu_torch.models import PathomicModel
+    gen = torch.Generator().manual_seed(9)
+    model = PathomicModel(path_dim=8, omic_dim=8, mmhid=8,
+                          pallas_fusion="train", generator=gen).to(cuda)
+    model.eval()
+    x_path = torch.rand(2, 32, 32, 3, generator=gen).to(cuda)
+    x_omic = torch.randn(2, 80, generator=gen).to(cuda)
+    labels = torch.tensor([0, 2], device=cuda)
+    sp = (torch.arange(32, device=cuda)[:, None] // 8 * 4
+          + torch.arange(32, device=cuda)[None, :] // 8).expand(2, 32, 32)
+
+    def cost(xp, xo):
+        return nll_loss(model(x_path=xp, x_omic=xo).pred_fuse, labels)
+
+    n2, n3, n4 = (kron_fusion.kron_matmul.launches,
+                  kron_fusion.kron_bwd_dw.launches,
+                  kron_fusion.kron_bwd_dvec.launches)
+    with frozen_params(model):
+        pm, om = superpixel_attention_mask(cost, x_path, x_omic, sp, 16, 3, 5)
+    torch.cuda.synchronize()
+    assert kron_fusion.kron_matmul.launches == n2 + 1
+    assert kron_fusion.kron_bwd_dw.launches == n3
+    assert kron_fusion.kron_bwd_dvec.launches == n4 + 1
+    assert (pm.sum((1, 2)) == 3 * 64).all() and (om.sum(1) >= 5).all()
 
 
 @pytest.mark.cuda

@@ -197,6 +197,8 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.ops._build",
     "multimodal_learning_tpu_torch.ops.kron_fusion",
     "multimodal_learning_tpu_torch.ops.paired_conv",
+    "multimodal_learning_tpu_torch.masking",
+    "multimodal_learning_tpu_torch.masking.superpixel",
     "multimodal_learning_tpu_torch.utils",
     "multimodal_learning_tpu_torch.utils.checkpoint",
     "multimodal_learning_tpu_torch.utils.logging",
