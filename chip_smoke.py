@@ -62,7 +62,33 @@ Phases, each of which raises on failure (nothing is caught):
     forward;
 13. times B5 (bf16 and fp32) against its plain version, ``F.conv2d`` and
     its bound, and prints the share of the bound reached and the ratio to
-    ``F.conv2d`` for each dtype.
+    ``F.conv2d`` for each dtype;
+14. drives the MICCAI student's step at full width (the JAX package's
+    ``recipes/baseline.py`` ``miccai_student``: CRD from two teachers,
+    nce_p 300 -> 20 by ``mid``, nce_k 700 -> 512, AEKD ``GK_refine`` with
+    the CE gradient, bf16, 512^2, batch 16) through ``freeze_teacher`` on
+    phase 7's trained teacher, ``init_student_state`` and
+    ``build_student_train_step``: 20 timed steps (host ms per step, the
+    median of 4 windows of 5) that must launch B1 once each and B2, B3, B4
+    never, with finite losses and AEKD scale and the teacher's buffers
+    bitwise unchanged; a profiled window (kernel ms per step, busy share,
+    B1's share) and the host synchronisations per step; again with
+    ``--teacher_bn running`` (B2 once per step, B1 never) and with
+    ``--paired_conv True`` (B5 16 times per step: 4 forwards each of the
+    student, the EMA and the teacher, 4 data gradients);
+15. drives the M3LR t-SVD teacher's step at full width (``tsvd_teacher``:
+    n_views 4, Lambda_global 0.1, mu 1e-5, pho 1.1, max_mu 1, aux_iter 1)
+    likewise: B1 twice per step, finite ``loss_tsvd`` and TNNs, mu grown by
+    pho per refresh; a profiled window, and the host synchronisations per
+    step (the complex SVD's);
+16. cross-checks one fp32 student step on the card (kernel path, TF32 off)
+    against the CPU (plain path) from the same state, views and ranks;
+17. drives the MIA-2022 chain through the CLIs on one full-width synthetic
+    fold with ``--paired_conv True``: ``cli.train_cv_MT --tSVD_loss True``
+    (2 epochs of 4 steps), ``cli.train_cv_path_multi_MT`` with the
+    ``dscd_student`` flags on that teacher (1 epoch) and
+    ``cli.test_cv_path``, which must reproduce the student's final eval
+    exactly; launches checked per step and per eval forward.
 
 Phase 3 also holds B5 against its plain version (TF32 off), in bf16 and
 fp32, at the stage-1 shape, ragged ones, one with many tiles per block, one
@@ -422,11 +448,17 @@ def _train_batch(opt, gen, dev):
     return {k: v.to(dev) for k, v in batch.items()}
 
 
-def _profile_steps(step_fn, card, n, top=8, label="train"):
+B1_TAG = ("B1 (kron_gemm_kernel<true + kron_reduce_kernel; the step "
+          "launches no other kron kernel)", "kron_")
+
+
+def _profile_steps(step_fn, card, n, top=8, label="train",
+                   kernels=(("B5 (conv3x3)", "conv3x3"), B1_TAG)):
     """Kernel time per train step by name (torch.profiler, CUDA activity)
     and the device's busy share of the same steps' span (CUDA events); also
-    the time and share of B5's kernels (names holding "conv3x3") and of
-    B1's (names holding "kron_": its main and reduction passes)."""
+    the time and share of each kernel of ``kernels`` (a label and a tag its
+    kernels' names hold).  Returns those numbers (an empty dict when the
+    profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -442,21 +474,23 @@ def _profile_steps(step_fn, card, n, top=8, label="train"):
     if dev_ms == 0:
         print(f"profile {label}: the profiler saw no device time; kernel "
               f"breakdown not measured ({card})")
-        return
+        return {}
+    out = {"kernel_ms": dev_ms, "span_ms": span_ms,
+           "busy": dev_ms / span_ms}
     print(f"profile {label}: {dev_ms:.3f} ms of kernels per step, device "
           f"busy {100 * dev_ms / span_ms:.1f}% of the same steps' "
           f"{span_ms:.3f} ms span ({n} steps; {card})")
-    for what, tag in (("B5 (conv3x3)", "conv3x3"),
-                      ("B1 (kron_gemm_kernel<true + kron_reduce_kernel; "
-                       "the step launches no other kron kernel)", "kron_")):
+    for what, tag in kernels:
         ms = sum(ev.self_device_time_total for ev in events
                  if tag in ev.key) / n / 1e3
+        out[tag] = ms
         print(f"profile {label}: {what} {ms:.4f} ms per step, "
               f"{100 * ms / dev_ms:.2f}% of kernel time ({card})")
     for ev in sorted(events, key=lambda ev: -ev.self_device_time_total)[:top]:
         ms = ev.self_device_time_total / n / 1e3
         print(f"  {100 * ms / dev_ms:5.1f}% {ms:.4f} ms x{ev.count // n} "
               f"{ev.key[:90]}")
+    return out
 
 
 def _train_path(card, gen, dev, n_steps=20, n_warm=3, n_prof=3,
@@ -526,6 +560,9 @@ def _train_path(card, gen, dev, n_steps=20, n_warm=3, n_prof=3,
         return train_step(state, batch, 0.1)
 
     _profile_steps(step, card, n_prof, label=label)
+    syncs, where = _count_syncs(step, 3)
+    print(f"{label}: {syncs:g} host synchronisations per step {where} "
+          f"({card})")
     return state, batch, launches, step
 
 
@@ -946,6 +983,406 @@ def _cv_drivers(card, n_train=64, n_test=32, epochs=2):
     return total
 
 
+# The MIA-2022 flow (``recipes/baseline.py`` of the JAX package): the
+# MICCAI student (``miccai_student``) distilled from a frozen pofusion
+# teacher, and the M3LR t-SVD teacher (``tsvd_teacher``), at the paper
+# width; the banks hold 256 rows.
+PAPER = dict(mode="pathomic", task="grad", path_dim=128, omic_dim=128,
+             mmhid=128, feat_dim=128, input_size_path=512, batch_size=16,
+             compute_dtype="bfloat16", pallas_fusion="train",
+             niter_decay=30)
+STUDENT_CONFIG = dict(PAPER, distill="crd", num_teachers=2,
+                      assign_weights=True, CE_grads=True,
+                      select_pos_mode="mid", pos_mode="multi_pos", nce_p=300,
+                      nce_p2=20, nce_k=700, nce_k2=512, alpha=1.0, beta=0.02,
+                      reg_type="none", beta1=0.9, n_data=256)
+TSVD_CONFIG = dict(PAPER, CRD_distill=0, pred_distill=1, tSVD_loss=True,
+                   n_views=4, tSVD_mode="pathomic", Lambda_global=0.1,
+                   mu=1e-5, pho=1.1, max_mu=1.0, aux_iter=1, init_type="max",
+                   beta1=0.5, n_data=256)
+DSCD_FLAGS = dict(distill="crd", num_teachers=2, assign_weights=True,
+                  CE_grads=True, select_pos_mode="hard",
+                  pos_mode="multi_pos", nce_p=300, nce_p2=20, nce_k=1024,
+                  nce_k2=1024, alpha=1.0, beta=0.02, reg_type="none",
+                  beta1=0.9, kd_T=1.0)
+
+
+def _counters():
+    from multimodal_learning_tpu_torch.ops import kron_fusion as kf
+    from multimodal_learning_tpu_torch.ops import paired_conv as pc
+    return {"kron_train_fwd": kf.kron_matmul_dropout,
+            "kron_fwd": kf.kron_matmul, "kron_bwd_dw": kf.kron_bwd_dw,
+            "kron_bwd_dvec": kf.kron_bwd_dvec, "conv3x3": pc.conv3x3}
+
+
+def _windows(step_fn, n_windows, per_window):
+    """Host ms per step of ``n_windows`` windows of ``per_window`` steps,
+    each ending in a synchronise; returns (median, all, the steps'
+    metrics)."""
+    ms, history = [], []
+    for _ in range(n_windows):
+        t0 = time.perf_counter()
+        for _ in range(per_window):
+            history.append(step_fn()[1])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0) / per_window)
+    return sorted(ms)[len(ms) // 2], ms, history
+
+
+def _count_syncs(step_fn, n):
+    """Host synchronisations per step, as torch.cuda's sync debug mode
+    reports them (one warning each, attributed to the Python line that
+    called the op).  Returns (syncs per step, {"file:line": count})."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(n):
+                step_fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    where = {}
+    for w in rec:
+        if "called a synchronizing CUDA operation" in str(w.message):
+            key = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return sum(where.values()) / n, where
+
+
+def _student_batch(opt, gen, dev):
+    b, n = opt.batch_size, opt.n_data
+    index = torch.randperm(n, generator=gen)[:b]
+    sample_idx = torch.randint(0, n, (b, opt.nce_p + opt.nce_k),
+                               generator=gen)
+    sample_idx[:, 0] = index
+    batch = {"omic": torch.randn(b, opt.input_size_omic, generator=gen),
+             "g": torch.randint(0, opt.label_dim, (b,), generator=gen),
+             "index": index, "sample_idx": sample_idx,
+             "path_views": torch.randint(
+                 0, 256, (b, 2, opt.input_size_path, opt.input_size_path, 3),
+                 dtype=torch.uint8, generator=gen)}
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _student_path(card, gen, dev, teacher_sd, teacher_bn="batch",
+                  paired=False, n_windows=4, per_window=5, n_warm=3,
+                  n_prof=3):
+    """Phase 14: the MICCAI student's step at full width through the entry
+    points a user calls: ``freeze_teacher`` on phase 7's trained teacher,
+    ``init_student_state`` from seed 2019, ``build_student_train_step`` on
+    a device-resident batch.  Per step: B1 once with ``--teacher_bn
+    batch``, B2 once with ``running``, B3 and B4 never, B5 16 times with
+    ``--paired_conv`` (4 forwards each of the student, the EMA and the
+    teacher, 4 data gradients of the student) and never otherwise; finite
+    losses and AEKD scale; the teacher's buffers bitwise unchanged."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import make_lr_schedule
+    from multimodal_learning_tpu_torch.train import student
+
+    opt = Options(**STUDENT_CONFIG, teacher_bn=teacher_bn,
+                  paired_conv=paired)
+    teacher = define_model(opt, generator=torch.Generator())
+    teacher.load_state_dict(teacher_sd)
+    teacher = student.freeze_teacher(teacher, dev)
+    before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    state = student.init_student_state(
+        opt, define_model(opt, path_only=True,
+                          generator=torch.Generator().manual_seed(SEED)),
+        make_lr_schedule(opt, steps_per_epoch=50), opt.n_data, seed=SEED)
+    batch = _student_batch(opt, gen, dev)
+    step = student.build_student_train_step(opt, teacher)
+
+    def fn():
+        return step(state, batch, 0.1)
+
+    for _ in range(n_warm):
+        fn()
+    torch.cuda.synchronize()
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    host_ms, windows, history = _windows(fn, n_windows, per_window)
+    launches = {name: c.launches for name, c in counters.items()}
+    n = n_windows * per_window
+    want = {"kron_train_fwd": n if teacher_bn == "batch" else 0,
+            "kron_fwd": n if teacher_bn == "running" else 0,
+            "kron_bwd_dw": 0, "kron_bwd_dvec": 0,
+            "conv3x3": 16 * n if paired else 0}
+    label = (f"student step (teacher_bn {teacher_bn}"
+             + (", paired_conv)" if paired else ")"))
+    print(f"{label}: {n} steps, launches {launches} ({card})")
+    if launches != want:
+        raise RuntimeError(f"{label} launched {launches}, expected {want}")
+    for metrics in history:
+        for k, v in metrics.items():
+            if not torch.isfinite(v).all():
+                raise RuntimeError(f"{label}: metric {k} is not finite")
+    for k, v in teacher.state_dict().items():
+        if not torch.equal(v, before[k]):
+            raise RuntimeError(f"{label}: the frozen teacher's {k} changed")
+    print(f"{label} metrics, last step:", {
+        k: [round(x, 5) for x in v.flatten().tolist()] if v.numel() > 1
+        else round(float(v), 5) for k, v in history[-1].items()},
+          f"({card})")
+    print(f"timing {label}: host {host_ms:.3f} ms per step of "
+          f"{opt.batch_size} (median of {n_windows} windows of "
+          f"{per_window}: {', '.join(f'{w:.3f}' for w in windows)}), bf16, "
+          f"512^2, nce_p {opt.nce_p} -> {opt.nce_p2}, nce_k {opt.nce_k} -> "
+          f"{opt.nce_k2}, device-resident batch ({card})")
+    kron = "B1" if teacher_bn == "batch" else "B2"
+    prof = _profile_steps(fn, card, n_prof, label=label, kernels=(
+        ("B5 (conv3x3)", "conv3x3"),
+        (f"{kron} (kron_gemm_kernel + kron_reduce_kernel)", "kron_")))
+    syncs, where = _count_syncs(fn, 3)
+    print(f"{label}: {syncs:g} host synchronisations per step {where} "
+          f"({card})")
+    return {"host_ms": host_ms, "launches": launches, "syncs": syncs,
+            **prof}
+
+
+def _tsvd_path(card, gen, dev, n_windows=4, per_window=5, n_warm=3,
+               n_prof=3):
+    """Phase 15: the M3LR t-SVD teacher's step at full width
+    (``tsvd_teacher``: n_views 4, Lambda_global 0.1, mu 1e-5, pho 1.1,
+    max_mu 1, aux_iter 1) through ``init_teacher_state`` and
+    ``build_teacher_train_step``, the refresh flag a host bool per step as
+    the fold loop computes it.  B1 twice per step, the others never;
+    ``loss_tsvd`` and both TNNs finite; mu grown by pho per refresh."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import make_lr_schedule
+    from multimodal_learning_tpu_torch.train.steps import (
+        build_teacher_train_step, init_teacher_state)
+
+    opt = Options(**TSVD_CONFIG)
+    state = init_teacher_state(
+        opt, define_model(opt, generator=torch.Generator().manual_seed(SEED)),
+        make_lr_schedule(opt, steps_per_epoch=50), opt.n_data, seed=SEED)
+    batch = _train_batch(opt, gen, dev)
+    step = build_teacher_train_step(opt)
+    done = {"steps": 0, "refreshes": 0}
+
+    def fn():
+        refresh = done["steps"] % opt.aux_iter == 0
+        done["steps"] += 1
+        done["refreshes"] += int(refresh)
+        return step(state, batch, 0.1, tsvd_update=refresh)
+
+    for _ in range(n_warm):
+        fn()
+    torch.cuda.synchronize()
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    host_ms, windows, history = _windows(fn, n_windows, per_window)
+    launches = {name: c.launches for name, c in counters.items()}
+    n = n_windows * per_window
+    print(f"t-SVD teacher step: {n} steps, launches {launches} ({card})")
+    if launches != {"kron_train_fwd": 2 * n, "kron_fwd": 0, "kron_bwd_dw": 0,
+                    "kron_bwd_dvec": 0, "conv3x3": 0}:
+        raise RuntimeError(f"the t-SVD teacher step launched {launches}; "
+                           "B1 runs twice per step (student and EMA)")
+    for metrics in history:
+        for k in ("loss", "loss_tsvd", "tnn_path", "tnn_omic"):
+            if not torch.isfinite(metrics[k]).all():
+                raise RuntimeError(f"t-SVD teacher step: {k} is not finite")
+    mu = float(state.banks["tsvd"].mu)
+    want_mu = min(opt.mu * opt.pho ** done["refreshes"], opt.max_mu)
+    if abs(mu - want_mu) > 1e-5 * want_mu:
+        raise RuntimeError(f"mu is {mu} after {done['refreshes']} refreshes;"
+                           f" expected {want_mu}")
+    print("t-SVD teacher step metrics, last step:", {
+        k: float(v) for k, v in history[-1].items() if v.numel() == 1},
+          f"mu {mu:.6e} after {done['refreshes']} refreshes ({card})")
+    print(f"timing t-SVD teacher step: host {host_ms:.3f} ms per step of "
+          f"{opt.batch_size} (median of {n_windows} windows of {per_window}:"
+          f" {', '.join(f'{w:.3f}' for w in windows)}), bf16, 512^2, "
+          f"n_views {opt.n_views}, a refresh every step ({card})")
+    prof = _profile_steps(fn, card, n_prof, label="t-SVD teacher step")
+    syncs, where = _count_syncs(fn, 3)
+    print(f"t-SVD teacher step: {syncs:g} host synchronisations per step "
+          f"{where} ({card})")
+    return {"host_ms": host_ms, "launches": launches, "syncs": syncs,
+            **prof}
+
+
+def _student_cross_check(card, gen, teacher_sd, batch_size=4):
+    """Phase 16: one fp32 student step (the phase 14 flags, dropout 0) on
+    the card (kernel path, TF32 off) against the CPU (plain path, oneDNN
+    off), from the same state, views and ``mid`` ranks, at phase 9's
+    tolerances: the loss parts, the AEKD scale and both banks with their Z
+    at rtol 2e-3 / atol 5e-4; Adam's first moment of the heads (the CRD
+    embeds, ``fc_new1`` but its bias, which feeds a train-mode BatchNorm,
+    ``fc_new2``) at rtol 2e-3 and an atol of 2e-3 of each tensor's largest
+    element, the trunk's by the norm of the difference at 2e-2."""
+    import copy
+
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.contrast import draw_pick
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import make_lr_schedule
+    from multimodal_learning_tpu_torch.train import student
+
+    opt = Options(**{**STUDENT_CONFIG, "compute_dtype": "float32",
+                     "dropout_rate": 0.0, "batch_size": batch_size})
+    model = define_model(opt, path_only=True,
+                         generator=torch.Generator().manual_seed(SEED))
+    teacher = define_model(opt, generator=torch.Generator())
+    teacher.load_state_dict(teacher_sd)
+    batch = _student_batch(opt, gen, "cpu")
+    views = (torch.rand(batch_size, 2, opt.input_size_path,
+                        opt.input_size_path, 3, generator=gen) * 2 - 1)
+    picks = {name: draw_pick("mid", opt.nce_p, opt.nce_p2, gen)
+             for name in ("fuse", "ema")}
+    augment = student.augment_views
+    student.augment_views = lambda g, v, dtype: views.to(v.device, dtype)
+    results = {}
+    try:
+        for where in ("cuda", "cpu"):
+            state = student.init_student_state(
+                opt, copy.deepcopy(model), make_lr_schedule(opt, 50),
+                opt.n_data, seed=SEED, device=where)
+            step = student.build_student_train_step(
+                opt, student.freeze_teacher(copy.deepcopy(teacher), where))
+            with torch.backends.mkldnn.flags(enabled=False):
+                _, metrics = step(state, {k: v.to(where)
+                                          for k, v in batch.items()}, 0.1,
+                                  picks={k: v.to(where)
+                                         for k, v in picks.items()})
+            adam = state.optimizer.optimizer.state
+            named = {f"model.{n}": p for n, p in
+                     state.model.named_parameters()}
+            named.update({f"{side}.{n}": p for side, emb in
+                          state.embeds.items()
+                          for n, p in emb.named_parameters()})
+            results[where] = (
+                {k: v.cpu() for k, v in metrics.items()},
+                {n: adam[p]["exp_avg"].cpu() for n, p in named.items()},
+                {f"{name}.{k}": getattr(bank, k).cpu()
+                 for name, bank in state.banks.items()
+                 for k in ("memory_v1", "memory_v2", "z_v1", "z_v2")})
+    finally:
+        student.augment_views = augment
+    (m_gpu, mu_gpu, b_gpu), (m_cpu, mu_cpu, b_cpu) = (results["cuda"],
+                                                      results["cpu"])
+    for k in m_cpu:
+        torch.testing.assert_close(m_gpu[k].float(), m_cpu[k].float(),
+                                   rtol=2e-3, atol=5e-4, msg=k)
+    for k in b_cpu:
+        torch.testing.assert_close(b_gpu[k], b_cpu[k], rtol=2e-3, atol=5e-4,
+                                   msg=f"bank {k}")
+    worst_el, worst_norm = 0.0, 0.0
+    for n, want in mu_cpu.items():
+        diff = mu_gpu[n] - want
+        if n.startswith("model.") and "fc_new" not in n:
+            rel = (diff.norm() / want.norm().clamp_min(1e-30)).item()
+            if rel > 2e-2:
+                raise AssertionError(f"student exp_avg {n}: |card - cpu| / "
+                                     f"|cpu| = {rel:.3e} > 2e-2")
+            worst_norm = max(worst_norm, rel)
+            continue
+        if n == "model.fc_new1.0.bias":
+            continue
+        atol = max(1e-6, 2e-3 * want.abs().max().item())
+        torch.testing.assert_close(mu_gpu[n], want, rtol=2e-3, atol=atol,
+                                   msg=f"student exp_avg {n}")
+        worst_el = max(worst_el, (diff.abs().max()
+                                  / want.abs().max().clamp_min(1e-30)).item())
+    print("fp32 student step card vs cpu, loss parts:", {
+        k: f"{float(m_gpu[k]):.6f}/{float(m_cpu[k]):.6f}" for k in m_cpu
+        if m_cpu[k].numel() == 1}, "scale", m_gpu["scale"].tolist(), "/",
+          m_cpu["scale"].tolist(), f"({card})")
+    print(f"fp32 student step card vs cpu: banks and Z agree; exp_avg heads "
+          f"worst max|diff| / max|cpu| = {worst_el:.3e}, trunk worst |diff| "
+          f"/ |cpu| = {worst_norm:.3e} (batch {batch_size}, 512^2; {card})")
+
+
+def _mia_chain(card, n_train=64, n_test=32, teacher_epochs=2):
+    """Phase 17: the MIA-2022 chain through the CLIs as a user runs them,
+    on one synthetic fold at full width with ``--paired_conv True``:
+    ``cli.train_cv_MT --tSVD_loss True`` (the ``tsvd_teacher`` flags, 2
+    epochs), ``cli.train_cv_path_multi_MT`` (the ``dscd_student`` flags,
+    ``--fixed_model`` that teacher, 1 epoch, so that the best checkpoint is
+    the final one) and ``cli.test_cv_path``, which must reproduce the
+    student's final eval exactly.  Launches are checked per step and per
+    eval forward.  Returns each driver's launches."""
+    from multimodal_learning_tpu_torch.cli import (test_cv_path,
+                                                   train_cv_MT,
+                                                   train_cv_path_multi_MT)
+    from multimodal_learning_tpu_torch.eval import load_pred_test
+    from multimodal_learning_tpu_torch.eval.metrics import (
+        extended_grading_metrics, one_hot)
+
+    bs = PAPER["batch_size"]
+    steps, fwd = n_train // bs, -(-n_test // bs)
+    counters = _counters()
+    common = {**PAPER, "paired_conv": True, "synthetic_data": True,
+              "synthetic_folds": 1}
+    teacher = {**TSVD_CONFIG, **common, "niter_decay": teacher_epochs,
+               "model_name": "smoke_m3lr"}
+    teacher.pop("n_data")
+    student_flags = {**common, **DSCD_FLAGS, "niter_decay": 1,
+                     "fixed_model": "smoke_m3lr", "model_name": "smoke_dscd"}
+    out = {}
+
+    def run(main, cfg, root, want, what):
+        for c in counters.values():
+            c.launches = 0
+        flags = [a for k, v in cfg.items() for a in (f"--{k}", str(v))]
+        t0 = time.perf_counter()
+        res = main(flags + ["--checkpoints_dir", root])
+        torch.cuda.synchronize()
+        got = {name: c.launches for name, c in counters.items()}
+        print(f"MIA-2022 chain: {what} in {time.perf_counter() - t0:.2f} s, "
+              f"launches {got} ({card})")
+        want = {name: want.get(name, 0) for name in counters}
+        if got != want:
+            raise RuntimeError(f"{what} launched {got}, expected {want}")
+        out[what.split(" ")[0]] = got
+        return res
+
+    with tempfile.TemporaryDirectory() as root:
+        e = teacher_epochs
+        run(train_cv_MT.main, teacher, root,
+            {"conv3x3": 12 * e * steps + 4 * e * fwd,
+             "kron_train_fwd": 2 * e * steps, "kron_fwd": e * fwd},
+            f"train_cv_MT --tSVD_loss True ({e * steps} steps, {e} evals of "
+            f"{n_test} ROIs)")
+        final = run(train_cv_path_multi_MT.main, student_flags, root,
+                    {"conv3x3": 16 * steps + 4 * fwd,
+                     "kron_train_fwd": steps},
+                    f"train_cv_path_multi_MT ({steps} steps, 1 eval of "
+                    f"{n_test} ROIs)")[1]
+        ext = run(test_cv_path.main, {**student_flags, "niter_decay": 1},
+                  root, {"conv3x3": 4 * fwd}, "test_cv_path")
+        ckpt_dir = os.path.join(root, "grad_15", "smoke_dscd")
+        with open(os.path.join(ckpt_dir, "metrics.jsonl")) as fh:
+            for line in fh:
+                rec = json.loads(line)
+                print(f"MIA-2022 chain: student epoch {rec['epoch']:g} "
+                      f"{rec['samples_per_s']:.1f} patches/s through the "
+                      f"loader and prefetcher, loss {rec['train_loss']:.5f} "
+                      f"({card})")
+        dumped = load_pred_test(os.path.join(ckpt_dir,
+                                             "smoke_dscd_1_pred_test.pkl"))
+    if not np.array_equal(dumped["probs"]["path"], final["probs"]["path"]):
+        raise RuntimeError("test_cv_path's probabilities differ from the "
+                           "student's training-time final eval")
+    if not np.isfinite(final["probs"]["path"]).all():
+        raise RuntimeError("the student's probabilities are not finite")
+    want = extended_grading_metrics(one_hot(final["gt"], 3),
+                                    final["probs"]["path"])
+    if ext != [want]:
+        raise RuntimeError(f"test_cv_path's metrics {ext} differ from the "
+                           f"final eval's {want}")
+    print("MIA-2022 chain: test_cv_path reproduces the student's final eval "
+          "exactly;", {k: round(v, 5) for k, v in want.items()}, f"({card})")
+    return out
+
+
 def _time_conv(gen, dev, card, flush):
     """B5, its plain version and ``F.conv2d`` (the one PyTorch call that
     computes the same function; the plain version is that call too) at
@@ -1195,12 +1632,58 @@ def main() -> int:
     paired = _train_path(card, gen, dev, paired=True)
     _ab_steps(card, (("paired_conv off", step), ("paired_conv on",
                                                  paired[3])))
+    teacher_sd = {k: v.detach().clone()
+                  for k, v in state.model.state_dict().items()}
     del state, tbatch, step, paired
     torch.cuda.empty_cache()
     # 12. the CV drivers at full width under --paired_conv
     cv_launches = _cv_drivers(card)
     # 13. B5's timing
     ctimes = _time_conv(gen, dev, card, flush)
+    # 14. the MICCAI student's step on phase 7's teacher: --teacher_bn batch
+    # (B1), running (B2), and batch under --paired_conv (B5)
+    students = {(bn, paired): _student_path(card, gen, dev, teacher_sd, bn,
+                                            paired)
+                for bn, paired in (("batch", False), ("running", False),
+                                   ("batch", True))}
+    torch.cuda.empty_cache()
+    # 15. the M3LR t-SVD teacher's step
+    tsvd = _tsvd_path(card, gen, dev)
+    torch.cuda.empty_cache()
+    # 16. one fp32 student step, card against CPU
+    _student_cross_check(card, gen, teacher_sd)
+    # 17. the MIA-2022 chain through the CLIs
+    chain = _mia_chain(card)
+    print("MIA-2022 steps per step (bf16, 512^2, batch 16): " + "; ".join(
+        f"{name}: host {r['host_ms']:.3f} ms, kernels "
+        f"{r.get('kernel_ms', float('nan')):.3f} ms, busy "
+        f"{100 * r.get('busy', float('nan')):.1f}%, {r['syncs']:g} syncs"
+        for name, r in (("student batch", students["batch", False]),
+                        ("student running", students["running", False]),
+                        ("student paired", students["batch", True]),
+                        ("t-SVD teacher", tsvd))) + f" ({card})")
+    launched_by = {
+        "kron_fwd": {
+            "serving (export + predict)": kron_launches,
+            "student step, teacher_bn running (20 steps)":
+                students["running", False]["launches"]["kron_fwd"],
+            "train_cv_MT --tSVD_loss evals": chain["train_cv_MT"]["kron_fwd"]},
+        "kron_train_fwd": {
+            "teacher train step (20 steps)": b1_launches,
+            "student step, teacher_bn batch (20 steps)":
+                students["batch", False]["launches"]["kron_train_fwd"],
+            "t-SVD teacher step (20 steps)":
+                tsvd["launches"]["kron_train_fwd"],
+            "MIA-2022 CLI chain": chain["train_cv_MT"]["kron_train_fwd"]
+            + chain["train_cv_path_multi_MT"]["kron_train_fwd"]},
+        "kron_bwd_dw": {},
+        "kron_bwd_dvec": {"saliency call": sal_launches["kron_bwd_dvec"]},
+        "conv3x3": {
+            "cv drivers": cv_launches["conv3x3"],
+            "student step, paired_conv (20 steps)":
+                students["batch", True]["launches"]["conv3x3"],
+            "MIA-2022 CLI chain": sum(c["conv3x3"] for c in chain.values())},
+    }
 
     kernels = [{
         "name": "kron_fwd", "route": "cuda",
@@ -1239,9 +1722,10 @@ def main() -> int:
         else:
             kernels[-1]["check_launches"] = check_launches[name]
         if name == "kron_bwd_dw":
-            kernels[-1]["launched_by"] = (
+            kernels[-1]["note"] = (
                 "checks and timing only: the saliency pass takes no weight "
-                "gradient (in the JAX package XLA drops the unused dW)")
+                "gradient (in the JAX package XLA drops the unused dW), and "
+                "no gradient reaches the students' frozen teacher")
         if name == "kron_bwd_dvec":
             kernels[-1].update(saliency_ms=sal_ms,
                                saliency_kernel_ms=sal_dev_ms,
@@ -1263,6 +1747,8 @@ def main() -> int:
         "fp32_bound_share": bound32 / t32["kernel", True],
         "fp32_library_ratio": t32["kernel", True] / t32["library", True],
         "fp32_max_abs_err": conv_errs[torch.float32]})
+    for k in kernels:
+        k["launched_by"] = launched_by[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

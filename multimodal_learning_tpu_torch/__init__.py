@@ -8,7 +8,8 @@ keeping a plain PyTorch version of each kernel beside it for the CPU and as
 the test oracle.
 
 Ported so far (the pofusion teacher's serving path, train step and CV
-drivers, and the masked teacher's saliency masks):
+drivers, the masked teacher's saliency masks, and the MIA-2022 flow: the
+MICCAI/DSCD students and the M3LR t-SVD teacher):
 
 - ``config``    the ``Options`` flag surface (own copy)
 - ``models``    ResNet18 (with ``--paired_conv``), MaxNet, BilinearFusion,
@@ -22,15 +23,21 @@ drivers, and the masked teacher's saliency masks):
                 prefetch, the native JPEG decoder, on-device augmentation
 - ``losses``    NLL, Cox, L1, pred-KD, DistillKL, SP, orth
 - ``masking``   the superpixel saliency masks of the masked teacher
-- ``contrast``  the classic CRD memory bank and NCE loss
-- ``train``     the teacher's train and eval steps, the fold loop, Adam and
-                the LR schedules (plateau included), EMA, and the
+- ``contrast``  the CRD memory banks (classic, and the students' v2/v3/v4
+                selection), the NCE loss and the loss-gated CRD
+- ``gradweight`` the AEKD / GK-Refine teacher weightings from feature and
+                parameter gradients
+- ``lowrank``   the M3LR t-SVT operator and its view adjacencies
+- ``train``     the teacher's train and eval steps (t-SVD included), the
+                student's step and fold loop, the teacher's fold loop, Adam
+                and the LR schedules (plateau included), EMA, and the
                 train-state bridge to the JAX package
 - ``eval``      grading and survival metrics (numpy/scipy), prediction dumps
 - ``utils``     fold checkpoints in the JAX package's pickle layout,
                 train-state snapshots, the JSONL metrics log
 - ``serve``     the eval forward and its ``torch.save`` artifact
-- ``cli``       ``train_cv_MT``, ``test_cv_MT``, ``export_model``, ``predict``
+- ``cli``       ``train_cv_MT``, ``test_cv_MT``, ``train_cv_path_multi_MT``,
+                ``test_cv_path``, ``export_model``, ``predict``
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

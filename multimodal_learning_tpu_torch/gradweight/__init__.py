@@ -1,0 +1,4 @@
+"""Gradient-guided teacher weighting (GK-Refine / AEKD / GKM), PyTorch."""
+from .aekd import (aekd_scale, aekd_total, aekd_v2_gate, feature_grads,
+                   gk_refine_param_space, gk_refine_thresh_weights,
+                   momentum_aekd_scale)

@@ -1,4 +1,5 @@
-"""Carry a teacher train state between the JAX package and the port.
+"""Carry a teacher or student train state between the JAX package and the
+port.
 
 The JAX package's ``TrainState`` is a pytree; the port never imports JAX,
 so the bridge works on that state as nested numpy trees in one plain dict
@@ -10,7 +11,15 @@ so the bridge works on that state as nested numpy trees in one plain dict
                 "crd_fuse_t": {...}},       # heads only with CRD
      "batch_stats": ..., "ema_params": ..., "ema_batch_stats": ...,
      "adam": {"count": int, "mu": <as params>, "nu": <as params>},
-     "banks": {"fuse": {"memory_v1", "memory_v2", "z_v1", "z_v2"}}}
+     "banks": {"fuse": {"memory_v1", "memory_v2", "z_v1", "z_v2"},
+               "tsvd": {"aux1", "aux2", "mu", "tnn1", "tnn2"}}}
+
+The student's state has the same layout (``train/student.py``): the
+path-only ResNet under ``params["model"]``, the single-Linear CRD heads
+``crd_{fuse,ema}_{s,t}``, the banks ``"fuse"`` and ``"ema"`` (each with
+its Z) and, under momentum AEKD, ``"aekd_ema"`` (an array); its frozen
+teacher's ``{"params", "batch_stats"}`` travels on its own, through
+``models/import_flax.py``.
 
 Weights and Adam's moments go through the same key maps and transposes
 (``models/import_flax.py``); optax's ``count`` becomes torch Adam's
@@ -18,6 +27,7 @@ Weights and Adam's moments go through the same key maps and transposes
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -26,7 +36,7 @@ from torch import nn
 
 from ..contrast.crd import CRDBank
 from ..models.import_flax import flax_from_state_dict, state_dict_from_flax
-from .state import TrainState
+from .state import TrainState, TsvdAux
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -100,10 +110,13 @@ def load_jax_state(state: TrainState, tree) -> TrainState:
                               "exp_avg_sq": nu[name].to(dev)}
     state.optimizer.count = count
     state.step = int(tree["step"])
+    tensor = lambda v: torch.tensor(np.asarray(v, np.float32), device=dev)
     for name, bank in tree.get("banks", {}).items():
-        state.banks[name] = CRDBank(**{
-            k: torch.tensor(np.asarray(v, np.float32), device=dev)
-            for k, v in bank.items()})
+        if not isinstance(bank, dict):
+            state.banks[name] = tensor(bank)
+            continue
+        kind = TsvdAux if name == "tsvd" else CRDBank
+        state.banks[name] = kind(**{k: tensor(v) for k, v in bank.items()})
     return state
 
 
@@ -128,7 +141,7 @@ def jax_state_tree(state: TrainState):
         "ema_batch_stats": ema_stats,
         "adam": {"count": state.optimizer.count, "mu": moment("exp_avg"),
                  "nu": moment("exp_avg_sq")},
-        "banks": {name: {k: _np(getattr(bank, k)) for k in (
-            "memory_v1", "memory_v2", "z_v1", "z_v2")}
-            for name, bank in state.banks.items()},
+        "banks": {name: _np(bank) if isinstance(bank, torch.Tensor)
+                  else {k: _np(v) for k, v in dataclasses.asdict(bank).items()}
+                  for name, bank in state.banks.items()},
     }

@@ -15,8 +15,13 @@ last batch.  Fold checkpoints are written in the JAX package's pickle
 layout (``utils/checkpoint.py``), so either package evaluates the other's
 folds.
 
-Refused, naming their ROADMAP items: the masked CLAT teacher (A13), the
-t-SVD teacher (A12), mmdynamics (A17), ``--data_parallel`` above 1 (A19).
+The t-SVD teacher (``--tSVD_loss``) refreshes its ADMM tensors every
+``aux_iter`` batches of an epoch, a schedule the host keeps
+(``batch_idx % aux_iter == 0``, as the JAX loop does), so no device read
+decides it.
+
+Refused, naming their ROADMAP items: the masked CLAT teacher (A13),
+mmdynamics (A17), ``--data_parallel`` above 1 (A19).
 """
 from __future__ import annotations
 
@@ -47,8 +52,6 @@ def _refuse_unported(opt) -> None:
     for cond, what in (
             (bool(opt.masking) and opt.mode == "pathomic",
              "--masking (the masked CLAT teacher): ROADMAP A13"),
-            (opt.tSVD_loss and opt.mode == "pathomic",
-             "--tSVD_loss (the M3LR t-SVD teacher): ROADMAP A12"),
             (opt.mode == "pathomic" and opt.fusion_type == "mmdynamics",
              "--fusion_type mmdynamics: ROADMAP A17"),
             (opt.data_parallel > 1, "--data_parallel > 1: ROADMAP A19")):
@@ -129,7 +132,7 @@ def evaluate(opt, eval_step, model, loader, device,
     return res
 
 
-def _fold_payload(opt, fold, epoch, state, metrics, with_crd=False) -> Dict:
+def fold_payload(opt, fold, epoch, state, metrics, with_crd=False) -> Dict:
     """A fold checkpoint in the JAX package's layout."""
     params, stats = flax_from_state_dict(state.model.state_dict())
     ema_params, ema_stats = flax_from_state_dict(
@@ -221,9 +224,11 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
         t0 = time.time()
         sums: Dict[str, torch.Tensor] = {}
         n_samples = 0
-        for batch in PrefetchLoader(train_loader, depth=opt.prefetch_depth,
-                                    device=dev):
-            state, metrics = train_step(state, batch, crd_weight)
+        for batch_idx, batch in enumerate(PrefetchLoader(
+                train_loader, depth=opt.prefetch_depth, device=dev)):
+            state, metrics = train_step(
+                state, batch, crd_weight,
+                tsvd_update=batch_idx % opt.aux_iter == 0)
             n_samples += opt.batch_size
             for k, v in metrics.items():
                 if k.startswith(("loss", "correct")):
@@ -260,7 +265,7 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
             best = {"acc": test_acc, "epoch": epoch}
             save_checkpoint(
                 os.path.join(ckpt_dir, f"{opt.model_name}_{fold}_best.pt"),
-                _fold_payload(opt, fold, total_epochs, state,
+                fold_payload(opt, fold, total_epochs, state,
                               res.get("metrics_fuse")))
 
         mlog.log({"epoch": epoch,
@@ -282,7 +287,7 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
 
     # final fold checkpoint (train_cv_MT.py:119-130)
     save_checkpoint(os.path.join(ckpt_dir, f"{opt.model_name}_{fold}.pt"),
-                    _fold_payload(opt, fold, total_epochs, state,
+                    fold_payload(opt, fold, total_epochs, state,
                                   final_eval.get("metrics_fuse")
                                   if final_eval else None, with_crd=True))
     return final_eval, best

@@ -13,9 +13,15 @@ host sync).
 Branch availability follows ``opt.mode``: pathomic runs all three
 branches; path / omic a single branch, with EMA self-distillation.
 
+``--CRD_gate`` gates each CRD anchor side by whose per-sample NLL is
+larger (``weighted_CRDLoss``).  ``--tSVD_loss`` adds the M3LR low-rank
+constraint (``MIA 2022/train_test_tSVD.py:300-431``): the view Grams of
+both modalities, an ADMM refresh of the low-rank tensors by t-SVT (when
+the host says so, ``tsvd_update``), mu grown by ``pho`` up to ``max_mu``
+per refresh, and the Frobenius penalty ``mu/2 ||adj - aux||^2``.
+
 Not ported yet, and refused: the masked CLAT step (``masking=True``,
-ROADMAP A13), the t-SVD constraint (A12), the loss-gated CRD (A11),
-SupCon distillation (A15) and the mmdynamics fusion (A17).
+ROADMAP A13), SupCon distillation (A15) and the mmdynamics fusion (A17).
 """
 from __future__ import annotations
 
@@ -25,16 +31,18 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..contrast.crd import Embed, contrast_loss, crd_scores, init_bank
+from ..contrast.crd import (Embed, contrast_loss, crd_gate_weights,
+                            crd_scores, init_bank, weighted_contrast_loss)
 from ..data.augment import augment_view, augment_views
 from ..losses import (cox_loss, l1_regularizer, nll_loss, orth_loss,
                       pred_kd_loss, sp_loss)
+from ..lowrank import build_view_features, update_adj_tensor, update_aux
 from ..models.factory import _dtype
 from ..models.fusion import _KronEncoder1
 from ..models.pathomic import PathomicOutput
 from .ema import update_ema
 from .optim import make_optimizer
-from .state import TrainState
+from .state import TrainState, TsvdAux
 
 
 def adapt_output(opt, raw) -> PathomicOutput:
@@ -104,13 +112,20 @@ def _branch_feat(opt, out: PathomicOutput):
     return out.path_feat if opt.mode == "path" else out.omic_feat
 
 
+def _branch_pred(opt, out: PathomicOutput):
+    if opt.mode == "pathomic":
+        return out.pred_fuse
+    return out.pred_path if opt.mode == "path" else out.pred_omic
+
+
+def _use_tsvd(opt) -> bool:
+    return bool(opt.tSVD_loss) and opt.mode == "pathomic"
+
+
 def _refuse_unported(opt, masking: bool = False) -> None:
     for cond, what in (
             (masking, "the masked CLAT stage-1 step (masking=True): "
                       "ROADMAP A13"),
-            (opt.tSVD_loss and opt.mode == "pathomic",
-             "--tSVD_loss (the M3LR t-SVD constraint): ROADMAP A12"),
-            (opt.CRD_gate, "--CRD_gate (the loss-gated CRD): ROADMAP A11"),
             (opt.supcon_distill == 1, "--supcon_distill: ROADMAP A15"),
             (opt.mode == "pathomic" and opt.fusion_type == "mmdynamics",
              "--fusion_type mmdynamics: ROADMAP A17")):
@@ -153,6 +168,12 @@ def init_teacher_state(opt, model: nn.Module, lr_schedule, n_data: int,
         for side in ("crd_fuse_s", "crd_fuse_t"):
             embeds[side] = Embed(width, opt.feat_dim, generator=gen)
         banks["fuse"] = init_bank(n_data, opt.feat_dim, gen, dev)
+    if _use_tsvd(opt):
+        zeros = lambda: torch.zeros(opt.n_views, opt.batch_size,
+                                    opt.batch_size, device=dev)
+        scalar = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+        banks["tsvd"] = TsvdAux(zeros(), zeros(), scalar(opt.mu),
+                                scalar(0.0), scalar(0.0))
     model.to(dev)
     embeds.to(dev)
     ema_model = copy.deepcopy(model).requires_grad_(False)
@@ -167,20 +188,58 @@ def init_teacher_state(opt, model: nn.Module, lr_schedule, n_data: int,
                       generator=dev_gen, banks=banks)
 
 
+def _tsvd_loss(opt, tsvd: TsvdAux, out: PathomicOutput,
+               ema_out: PathomicOutput, refresh: bool
+               ) -> Dict[str, torch.Tensor]:
+    """The M3LR constraint (``train_test_tSVD.py:300-431``): refreshes
+    ``tsvd`` in place when ``refresh`` (a host bool: every ``aux_iter``
+    batches, ``:376-413``) and returns the penalty and the TNNs."""
+    feats1, feats2 = build_view_features(
+        opt.n_views, out.fuse_feat, ema_out.fuse_feat, out.path_feat,
+        ema_out.path_feat, out.omic_feat, ema_out.omic_feat)
+    adj1, adj2 = update_adj_tensor(feats1), update_adj_tensor(feats2)
+    if refresh:
+        with torch.no_grad():
+            tau = opt.Lambda_global / tsvd.mu
+            for aux, tnn, adj in ((tsvd.aux1, tsvd.tnn1, adj1),
+                                  (tsvd.aux2, tsvd.tnn2, adj2)):
+                a, t = update_aux(adj.permute(1, 2, 0), tau)   # [B, B, V]
+                aux.copy_(a.permute(2, 0, 1))
+                tnn.copy_(t)
+            tsvd.mu.copy_(torch.clamp(tsvd.mu * opt.pho, max=opt.max_mu))
+    frob = lambda adj, aux: ((adj - aux) ** 2).sum()
+    if opt.tSVD_mode == "path":
+        penalty = frob(adj1, tsvd.aux1)
+    elif opt.tSVD_mode == "omic":
+        penalty = frob(adj2, tsvd.aux2)
+    else:
+        penalty = frob(adj1, tsvd.aux1) + frob(adj2, tsvd.aux2)
+    return {"loss_tsvd": tsvd.mu / 2.0 * penalty,
+            "tnn_path": tsvd.tnn1.clone(), "tnn_omic": tsvd.tnn2.clone()}
+
+
 def build_teacher_train_step(opt, masking: bool = False):
-    """``train_step(state, batch, crd_weight) -> (state, metrics)``.
+    """``train_step(state, batch, crd_weight, tsvd_update=True) -> (state,
+    metrics)``.
 
     ``batch`` holds device tensors: ``path_views`` uint8 [B, 2, H, W, 3],
     ``omic`` [B, 80], ``g`` (grade) or ``t``/``e`` (survival), and for CRD
     ``index`` [B] and ``sample_idx`` [B, 1 + nce_k] (column 0 the
-    positive)."""
+    positive).  ``tsvd_update``, a host bool, says whether a
+    ``--tSVD_loss`` step refreshes the ADMM tensors."""
     _refuse_unported(opt, masking)
+    if opt.CRD_gate and (opt.task != "grad" or opt.pos_mode
+                         not in ("exact", "relax")):
+        raise NotImplementedError(
+            "--CRD_gate implements the single-positive weighted_CRDLoss "
+            "(CRD_loss.py:8-50): task=grad with pos_mode exact/relax only")
     use_images = opt.mode in ("path", "pathomic")
     dtype = _dtype(opt)
     n_pos = (1 if opt.task == "surv" or opt.pos_mode in ("exact", "relax")
              else opt.nce_p)
 
-    def train_step(state: TrainState, batch, crd_weight: float):
+    def train_step(state: TrainState, batch, crd_weight: float,
+                   tsvd_update: bool = True):
         model, ema = state.model.train(), state.ema_model.train()
         dev = batch["omic"].device
         x1 = x2 = None
@@ -204,9 +263,19 @@ def build_teacher_train_step(opt, masking: bool = False):
             out_s, out_t = crd_scores(
                 state.banks["fuse"], f_s, f_t, batch["index"],
                 batch["sample_idx"], T=opt.nce_t, momentum=opt.nce_m)
-            metrics["loss_CRD"] = crd_weight * (
-                contrast_loss(out_s, opt.n_data, n_pos=n_pos)
-                + contrast_loss(out_t, opt.n_data, n_pos=n_pos))
+            if opt.CRD_gate:
+                # weighted_CRDLoss (CRD_loss.py:8-50): each anchor side by
+                # whose per-sample NLL is larger
+                g_col = batch["g"].long()[:, None]
+                s_w, t_w = crd_gate_weights(
+                    -_branch_pred(opt, out).gather(1, g_col)[:, 0],
+                    -_branch_pred(opt, ema_out).gather(1, g_col)[:, 0])
+                loss_crd = (weighted_contrast_loss(out_s, s_w, opt.n_data)
+                            + weighted_contrast_loss(out_t, t_w, opt.n_data))
+            else:
+                loss_crd = (contrast_loss(out_s, opt.n_data, n_pos=n_pos)
+                            + contrast_loss(out_t, opt.n_data, n_pos=n_pos))
+            metrics["loss_CRD"] = crd_weight * loss_crd
             loss = loss + metrics["loss_CRD"]
 
         metrics["loss_KD"] = zero
@@ -224,6 +293,11 @@ def build_teacher_train_step(opt, masking: bool = False):
 
         if opt.orth_loss and opt.mode == "pathomic":
             loss = loss + orth_loss(out.path_feat, out.omic_feat)
+
+        if _use_tsvd(opt):
+            metrics.update(_tsvd_loss(opt, state.banks["tsvd"], out, ema_out,
+                                      tsvd_update))
+            loss = loss + metrics["loss_tsvd"]
         metrics["loss"] = loss
 
         state.optimizer.zero_grad()

@@ -15,8 +15,10 @@ importing jax or loading half a checkpoint.
 Mid-fold snapshots for ``--resume``/``--snapshot_every``
 (``save_train_state``/``load_train_state``) are the port's own format, a
 ``torch.save`` of the whole train state: the model and the EMA model, the
-CRD heads, the optimizer with its update count and plateau scale, the CRD
-banks, the device generator's state, the epoch and an ``extra`` dict.  The
+CRD heads, the optimizer with its update count and plateau scale, the
+banks (CRD, t-SVD, the momentum-AEKD scale), the device generators'
+states (the step's and a student's frozen teacher's), the epoch and an
+``extra`` dict.  The
 JAX package's snapshots (flax serialisation) and the port's do not read
 each other.
 """
@@ -88,8 +90,11 @@ def save_train_state(path: str, state, epoch: int,
         "embeds": state.embeds.state_dict(),
         "optimizer": opt.optimizer.state_dict(), "count": opt.count,
         "lr_scale": opt.lr_scale,
-        "banks": {k: dataclasses.asdict(b) for k, b in state.banks.items()},
+        "banks": {k: dataclasses.asdict(b) if dataclasses.is_dataclass(b)
+                  else b for k, b in state.banks.items()},
         "generator": state.generator.get_state(), "extra": extra}
+    if state.teacher_generator is not None:
+        payload["teacher_generator"] = state.teacher_generator.get_state()
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -107,8 +112,13 @@ def load_train_state(path: str, state) -> Tuple[int, Optional[Dict]]:
     state.optimizer.lr_scale = payload["lr_scale"]
     dev = state.device
     for name, bank in payload["banks"].items():
+        if isinstance(bank, torch.Tensor):
+            state.banks[name].copy_(bank.to(dev))
+            continue
         for k, v in bank.items():
             getattr(state.banks[name], k).copy_(v.to(dev))
     state.generator.set_state(payload["generator"])
+    if "teacher_generator" in payload:
+        state.teacher_generator.set_state(payload["teacher_generator"])
     state.step = payload["step"]
     return payload["epoch"], payload["extra"]

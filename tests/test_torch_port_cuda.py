@@ -389,3 +389,97 @@ def test_conv3x3_wrapper_refuses_what_the_kernel_does_not_take(cuda):
             memory_format=torch.channels_last), w[:32, :32].contiguous())
     with pytest.raises(ValueError, match="on cpu"):
         paired_conv.conv3x3(x, w.cpu())
+
+
+def _launches():
+    return {"B1": kron_fusion.kron_matmul_dropout.launches,
+            "B2": kron_fusion.kron_matmul.launches,
+            "B3": kron_fusion.kron_bwd_dw.launches,
+            "B4": kron_fusion.kron_bwd_dvec.launches,
+            "B5": paired_conv.conv3x3.launches}
+
+
+def _small_batch(dev, b=4, size=64, width=14, n_data=32):
+    g = torch.Generator().manual_seed(3)
+    index = torch.randperm(n_data, generator=g)[:b]
+    sample_idx = torch.randint(0, n_data, (b, width), generator=g)
+    sample_idx[:, 0] = index
+    batch = {"omic": torch.randn(b, 80, generator=g),
+             "g": torch.randint(0, 3, (b,), generator=g), "index": index,
+             "sample_idx": sample_idx,
+             "path_views": torch.randint(0, 256, (b, 2, size, size, 3),
+                                         dtype=torch.uint8, generator=g)}
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("teacher_bn,paired,per_step", [
+    ("batch", False, dict(B1=1)), ("running", False, dict(B2=1)),
+    ("batch", True, dict(B1=1, B5=16))])
+def test_student_step_launches(cuda, teacher_bn, paired, per_step):
+    """The student step (``train/student.py``, GK_refine CRD with two
+    teachers): the frozen teacher's fusion launches B1 once per step in
+    train mode (``--teacher_bn batch``) or B2 once in eval mode
+    (``running``); B3 and B4 never, as no gradient reaches the teacher;
+    with ``--paired_conv`` B5 16 times (4 forwards each of the student,
+    the EMA and the teacher, 4 data gradients of the student).  The
+    teacher's buffers stay bitwise unchanged."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import make_lr_schedule, student
+    opt = Options(mode="pathomic", task="grad", input_size_path=64,
+                  path_dim=16, omic_dim=16, mmhid=16, feat_dim=16,
+                  batch_size=4, n_data=32, pallas_fusion="train",
+                  distill="crd", num_teachers=2, assign_weights=True,
+                  CE_grads=True, select_pos_mode="hard",
+                  pos_mode="multi_pos", nce_p=6, nce_p2=3, nce_k=8,
+                  nce_k2=5, compute_dtype="bfloat16", teacher_bn=teacher_bn,
+                  paired_conv=paired)
+    teacher = student.freeze_teacher(define_model(
+        opt, generator=torch.Generator().manual_seed(0)), cuda)
+    before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    state = student.init_student_state(
+        opt, define_model(opt, path_only=True,
+                          generator=torch.Generator().manual_seed(1)),
+        make_lr_schedule(opt, 10), 32, device=cuda)
+    step = student.build_student_train_step(opt, teacher)
+    batch = _small_batch(cuda)
+    start = _launches()
+    for _ in range(2):
+        state, metrics = step(state, batch, 0.1)
+    torch.cuda.synchronize()
+    got = {k: v - start[k] for k, v in _launches().items()}
+    assert got == {k: 2 * per_step.get(k, 0) for k in got}
+    for k, v in metrics.items():
+        assert torch.isfinite(v).all(), k
+    for k, v in teacher.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+
+@pytest.mark.cuda
+def test_tsvd_teacher_step_launches_b1_twice(cuda):
+    """The t-SVD teacher step: B1 in the student and the EMA forward; the
+    t-SVT's complex SVD is a cuSOLVER call, not a kernel of the port."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import make_lr_schedule
+    from multimodal_learning_tpu_torch.train.steps import (
+        build_teacher_train_step, init_teacher_state)
+    opt = Options(mode="pathomic", task="grad", input_size_path=64,
+                  path_dim=16, omic_dim=16, mmhid=16, batch_size=4,
+                  pallas_fusion="train", CRD_distill=0, pred_distill=1,
+                  tSVD_loss=True, n_views=4, tSVD_mode="pathomic",
+                  Lambda_global=0.1, mu=0.5, compute_dtype="bfloat16")
+    state = init_teacher_state(opt, define_model(
+        opt, generator=torch.Generator().manual_seed(0)),
+        make_lr_schedule(opt, 10), 32, device=cuda)
+    step = build_teacher_train_step(opt)
+    batch = _small_batch(cuda)
+    start = _launches()
+    for refresh in (True, False):
+        state, metrics = step(state, batch, 0.1, tsvd_update=refresh)
+    torch.cuda.synchronize()
+    got = {k: v - start[k] for k, v in _launches().items()}
+    assert got == {"B1": 4, "B2": 0, "B3": 0, "B4": 0, "B5": 0}
+    assert float(metrics["loss_tsvd"]) > 0
+    assert abs(float(state.banks["tsvd"].mu) - 0.55) < 1e-6

@@ -210,6 +210,8 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.cli.predict",
     "multimodal_learning_tpu_torch.cli.train_cv_MT",
     "multimodal_learning_tpu_torch.cli.test_cv_MT",
+    "multimodal_learning_tpu_torch.cli.train_cv_path_multi_MT",
+    "multimodal_learning_tpu_torch.cli.test_cv_path",
     "multimodal_learning_tpu_torch.data",
     "multimodal_learning_tpu_torch.data.augment",
     "multimodal_learning_tpu_torch.data.splits",
@@ -233,6 +235,12 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.train.steps",
     "multimodal_learning_tpu_torch.train.import_state",
     "multimodal_learning_tpu_torch.train.loop",
+    "multimodal_learning_tpu_torch.train.student",
+    "multimodal_learning_tpu_torch.gradweight",
+    "multimodal_learning_tpu_torch.gradweight.aekd",
+    "multimodal_learning_tpu_torch.lowrank",
+    "multimodal_learning_tpu_torch.lowrank.tsvt",
+    "multimodal_learning_tpu_torch.lowrank.views",
     "chip_smoke",
 ]
 

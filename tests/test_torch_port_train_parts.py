@@ -212,13 +212,6 @@ def test_crd_scores_bank_update_and_z_match_jax():
     assert float(pbank.z_v1) > 0
 
 
-def test_unported_crd_generations_name_the_roadmap():
-    for fn in (pc.crd_scores_select, pc.weighted_contrast_loss,
-               pc.crd_gate_weights):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            fn()
-
-
 # ----------------------------------------------------------------- BatchNorm
 
 @pytest.mark.parametrize("shape", [(16, 12), (4, 6, 5, 5)])
@@ -371,13 +364,17 @@ def test_train_entry_points_refuse_what_is_not_ported():
                 opt, 10), 16)
     with pytest.raises(NotImplementedError, match="A13"):
         build_teacher_train_step(opt, masking=True)
-    for kw, item in ((dict(tSVD_loss=True), "A12"),
-                     (dict(CRD_gate=True), "A11"),
-                     (dict(supcon_distill=1), "A15")):
+    for kw, item in ((dict(supcon_distill=1), "A15"),
+                     (dict(fusion_type="mmdynamics"), "A17")):
         with pytest.raises(NotImplementedError, match=item):
             build_teacher_train_step(opt.replace(**kw))
         with pytest.raises(NotImplementedError, match=item):
             build_eval_step(opt.replace(**kw))
+    # the loss-gated CRD is the single-positive weighted_CRDLoss, as in the
+    # JAX package
+    with pytest.raises(NotImplementedError, match="pos_mode exact/relax"):
+        build_teacher_train_step(opt.replace(CRD_gate=True,
+                                             pos_mode="multi_pos"))
     with pytest.raises(NotImplementedError, match="A2"):
         init_teacher_state(opt.replace(init_type="xavier"), define_model(opt),
                            make_lr_schedule(opt, 10), 16, device="cpu")
