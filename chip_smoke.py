@@ -88,7 +88,38 @@ Phases, each of which raises on failure (nothing is caught):
     (2 epochs of 4 steps), ``cli.train_cv_path_multi_MT`` with the
     ``dscd_student`` flags on that teacher (1 epoch) and
     ``cli.test_cv_path``, which must reproduce the student's final eval
+    exactly; launches checked per step and per eval forward;
+18. builds the SLIC library (``masking/slic.py``, g++ from
+    ``native/slic/slic.cpp``), checks its labels on 16 synthetic 512^2
+    ROIs and times it per ROI on the host;
+19. drives the masked CLAT teacher's step at full width (``clat_stage1``:
+    100 superpixels, Path_K 1, Omic_K 5, pred-KD, bf16, 512^2, batch 16, 4
+    views) on phase 18's ROIs and SLIC labels through
+    ``build_teacher_train_step(masking=True)``: ``--masking_bn chain`` (4
+    windows of 5 steps), chain with ``--paired_conv`` and discard (a
+    window); per step B1 6 times, B2 and B4 once (the saliency pass), B3
+    never, B5 36 times when paired; host ms, kernel ms, busy share, the
+    kernels' shares and the host synchronisations per step;
+20. cross-checks one fp32 masked step on the card against the CPU (batch
+    4, dropout 0, the same flips and jitter): saliency masks equal, loss
+    parts, heads' moments and BatchNorm buffers at rtol 2e-3 / atol 5e-4,
+    the trunk's moments by norm at 2e-2;
+21. drives the CLAT student's step at full width (``clat_stage2``: nce_p 6,
+    nce_k 4096 over banks of 8192 rows, kNN positives, GK_refine with the
+    0.25 threshold, two teachers) on phase 19's teacher: a run of 4
+    windows, and a window each with the query weights on, with k-means
+    centre positives, with ``--teacher_bn running`` and with
+    ``--paired_conv``; per step B1 once (B2 under ``running``), B5 16
+    times when paired;
+22. drives the MIA-2023 chain through the CLIs on one full-width synthetic
+    fold with ``--paired_conv True``: ``cli.train_cv_MT_SP_Masking``
+    (``--start_epoch 1``, 2 epochs: the second masked, on the loader's
+    SLIC maps), ``cli.train_cv_path_CLAT`` (1 epoch) and
+    ``cli.test_cv_path``, which must reproduce the student's final eval
     exactly; launches checked per step and per eval forward.
+
+Every phase that counts host synchronisations (7, 11, 14, 15, 19, 21)
+fails if one comes from the augmentation.
 
 Phase 3 also holds B5 against its plain version (TF32 off), in bf16 and
 fp32, at the stage-1 shape, ragged ones, one with many tiles per block, one
@@ -672,11 +703,11 @@ def _train_cross_check(card, gen, dev, batch_size=4):
 
 
 def _superpixels(gen, b, size, cells=10, n_empty=3):
-    """Synthetic SLIC output (SLIC is not ported yet): [b, size, size] ids
-    of a cells x cells grid whose cut lines move by up to a quarter cell
-    per sample, drawn from ``gen``; ``n_empty`` cells of each sample take
-    a neighbour's id, so their own ids are empty, have mean 0 and tie in
-    the top-k."""
+    """Synthetic superpixels for phase 8 (phase 19 feeds SLIC's): [b, size,
+    size] ids of a cells x cells grid whose cut lines move by up to a
+    quarter cell per sample, drawn from ``gen``; ``n_empty`` cells of each
+    sample take a neighbour's id, so their own ids are empty, have mean 0
+    and tie in the top-k."""
     step = size / cells
     out = []
     for _ in range(b):
@@ -1032,7 +1063,8 @@ def _windows(step_fn, n_windows, per_window):
 def _count_syncs(step_fn, n):
     """Host synchronisations per step, as torch.cuda's sync debug mode
     reports them (one warning each, attributed to the Python line that
-    called the op).  Returns (syncs per step, {"file:line": count})."""
+    called the op); fails if one comes from the augmentation.  Returns
+    (syncs per step, {"file:line": count})."""
     import warnings
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as rec:
@@ -1048,6 +1080,10 @@ def _count_syncs(step_fn, n):
         if "called a synchronizing CUDA operation" in str(w.message):
             key = f"{os.path.relpath(w.filename)}:{w.lineno}"
             where[key] = where.get(key, 0) + 1
+    augment = [k for k in where if "data/augment.py" in k]
+    if augment:
+        raise RuntimeError("the augmentation synchronises the host: "
+                           f"{augment}; its constants stay on the device")
     return sum(where.values()) / n, where
 
 
@@ -1383,6 +1419,468 @@ def _mia_chain(card, n_train=64, n_test=32, teacher_epochs=2):
     return out
 
 
+# The MIA-2023 CLAT flow (``recipes/baseline.py`` of the JAX package): the
+# superpixel-masked stage-1 teacher (``clat_stage1``) and the stage-2
+# adaptive-teaching student (``clat_stage2``), at the paper width.  The
+# student's banks hold 8192 rows, more than nce_k + 1 = 4097, so that no
+# negative is cut.
+CLAT1_CONFIG = dict(PAPER, CRD_distill=0, pred_distill=1, masking=1,
+                    num_superpixels=100, Path_K=1, Omic_K=5, start_epoch=1,
+                    beta1=0.9, n_data=256)
+CLAT2_FLAGS = dict(distill="crd", num_teachers=2, assign_weights=True,
+                   CE_grads=True, loss_weighting="GK_refine",
+                   use_grads_thresh=True, grads_thresh=0.25,
+                   pos_mode="exact", pos_extra="neighbors", nce_p=6,
+                   nce_k=4096, max_discrep=1.0, start_reweight=40, alpha=1.0,
+                   beta=0.02, reg_type="none", beta1=0.9)
+CLAT2_CONFIG = dict(PAPER, **CLAT2_FLAGS, n_data=8192)
+# the kernels of a masked step, by a tag their profiler names hold
+MASKED_TAGS = (("B1 main pass (kron_gemm_kernel<true>)", "kron_gemm_kernel<true"),
+               ("B2 main pass (kron_gemm_kernel<false>)",
+                "kron_gemm_kernel<false"),
+               ("B1 and B2 reduction passes (kron_reduce_kernel)",
+                "kron_reduce"),
+               ("B4 (kron_dvec_kernel + kron_dvec_reduce_kernel)",
+                "kron_dvec"),
+               ("B5 (conv3x3)", "conv3x3"))
+
+
+def _slic_rois(gen, n, size):
+    """Synthetic ROIs with structure for SLIC to follow: a smooth random
+    field (a 16 x 16 random image upsampled bilinearly) plus pixel noise,
+    uint8 [n, size, size, 3]."""
+    from torch.nn import functional as F
+    low = torch.rand(n, 3, 16, 16, generator=gen)
+    img = F.interpolate(low, size=(size, size), mode="bilinear",
+                        align_corners=False) * 200 + 28
+    img = img + torch.randn(n, 3, size, size, generator=gen) * 10
+    return img.clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous(
+        ).numpy()
+
+
+def _slic_phase(card, gen, n=16, size=512, n_sp=100):
+    """Phase 18: SLIC on the card's machine, through ``masking.slic``: the
+    native build from ``native/slic/slic.cpp`` (g++, into ``build/native``)
+    and its time, labels valid in [0, ``n_sp``) on ``n`` synthetic ROIs of
+    ``size``^2, and the host ms per ROI.  Returns the ROIs, their labels
+    and the numbers."""
+    from multimodal_learning_tpu_torch.masking import slic
+    path = slic.library_path()
+    existed = os.path.exists(path)
+    t0 = time.perf_counter()
+    slic.load_library()
+    build_s = time.perf_counter() - t0
+    print(f"SLIC: {'found' if existed else 'built'} "
+          f"{os.path.relpath(path)} in {build_s:.2f} s (g++ -O3 -fopenmp; "
+          f"{card})")
+    rois = _slic_rois(gen, n, size)
+    slic.slic_segment(rois[0], n_sp)
+    ms, labels = [], []
+    for roi in rois:
+        t0 = time.perf_counter()
+        labels.append(slic.slic_segment(roi, n_sp))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    labels = np.stack(labels)
+    if labels.dtype != np.int32 or labels.shape != (n, size, size):
+        raise RuntimeError(f"SLIC labels {labels.dtype} {labels.shape}")
+    if labels.min() < 0 or labels.max() >= n_sp:
+        raise RuntimeError(f"SLIC labels outside [0, {n_sp}): "
+                           f"[{labels.min()}, {labels.max()}]")
+    distinct = [len(np.unique(lab)) for lab in labels]
+    print(f"SLIC: {n} ROIs of {size}^2, {n_sp} superpixels: labels in "
+          f"[{labels.min()}, {labels.max()}], {min(distinct)}-"
+          f"{max(distinct)} distinct per ROI; host {np.median(ms):.3f} ms "
+          f"per ROI (median of {n}; min {min(ms):.3f}, max {max(ms):.3f}; "
+          f"{os.cpu_count()} host cores; {card})")
+    return rois, labels, {"build_s": build_s, "ms": float(np.median(ms))}
+
+
+def _masked_batch(opt, gen, dev, rois, labels):
+    """A device-resident masked-step batch: each ROI as its 4 views (the
+    loader's 4 crops of a ROI as large as the crop) and its SLIC map."""
+    b = opt.batch_size
+    index = torch.randperm(opt.n_data, generator=gen)[:b]
+    views = torch.from_numpy(rois[:b])[:, None].expand(
+        -1, 4, -1, -1, -1).contiguous()
+    batch = {"omic": torch.randn(b, opt.input_size_omic, generator=gen),
+             "g": torch.randint(0, opt.label_dim, (b,), generator=gen),
+             "index": index, "path_views": views,
+             "sp_mask": torch.from_numpy(labels[:b])}
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _masked_path(card, gen, dev, rois, labels, masking_bn="chain",
+                 paired=False, n_windows=4, per_window=5, n_warm=3,
+                 n_prof=3):
+    """Phase 19: the masked CLAT teacher's step at full width
+    (``clat_stage1`` as published, bf16, 512^2, batch 16) through
+    ``init_teacher_state`` and ``build_teacher_train_step(masking=True)``
+    on phase 18's ROIs and SLIC labels.  Per step: B1 6 times (the
+    student's main, masked-path and masked-omic forwards, the EMA's and
+    its two masked forwards), B2 and B4 once (the saliency pass), B3
+    never, B5 36 times with ``--paired_conv`` (forwards: 4 saliency, 4
+    EMA, 4 student, 4 masked student, 8 EMA masked; data gradients: 4
+    saliency, 4 student, 4 masked student; the masked-omic forward reuses
+    the trunk) and never otherwise.  Host ms per step (median of windows),
+    kernel ms, busy share, B1's, B2's, B4's and B5's shares, host syncs.
+    Returns those and the state."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import make_lr_schedule
+    from multimodal_learning_tpu_torch.train.steps import (
+        build_teacher_train_step, init_teacher_state)
+
+    opt = Options(**CLAT1_CONFIG, masking_bn=masking_bn, paired_conv=paired)
+    state = init_teacher_state(
+        opt, define_model(opt, generator=torch.Generator().manual_seed(SEED)),
+        make_lr_schedule(opt, steps_per_epoch=50), opt.n_data, seed=SEED)
+    batch = _masked_batch(opt, gen, dev, rois, labels)
+    step = build_teacher_train_step(opt, masking=True)
+
+    def fn():
+        return step(state, batch, 0.1)
+
+    for _ in range(n_warm):
+        fn()
+    torch.cuda.synchronize()
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    host_ms, windows, history = _windows(fn, n_windows, per_window)
+    launches = {name: c.launches for name, c in counters.items()}
+    n = n_windows * per_window
+    want = {"kron_train_fwd": 6 * n, "kron_fwd": n, "kron_bwd_dw": 0,
+            "kron_bwd_dvec": n, "conv3x3": 36 * n if paired else 0}
+    label = (f"masked teacher step (masking_bn {masking_bn}"
+             + (", paired_conv)" if paired else ")"))
+    print(f"{label}: {n} steps, launches {launches} ({card})")
+    if launches != want:
+        raise RuntimeError(f"{label} launched {launches}, expected {want}")
+    for metrics in history:
+        for k, v in metrics.items():
+            if not torch.isfinite(v).all():
+                raise RuntimeError(f"{label}: metric {k} is not finite")
+    if not float(history[-1]["loss_masking"]) > 0:
+        raise RuntimeError(f"{label}: loss_masking is not positive")
+    print(f"{label} metrics, last step:", {
+        k: round(float(v), 5) for k, v in history[-1].items()}, f"({card})")
+    print(f"timing {label}: host {host_ms:.3f} ms per step of "
+          f"{opt.batch_size} (median of {n_windows} windows of {per_window}:"
+          f" {', '.join(f'{w:.3f}' for w in windows)}), bf16, 512^2, 4 "
+          f"views, {opt.num_superpixels} SLIC superpixels, Path_K "
+          f"{opt.Path_K}, Omic_K {opt.Omic_K}, device-resident batch "
+          f"({card})")
+    out = {"host_ms": host_ms, "launches": launches, "state": state}
+    if n_prof:
+        out.update(_profile_steps(fn, card, n_prof, label=label,
+                                  kernels=MASKED_TAGS))
+        out["syncs"], where = _count_syncs(fn, 3)
+        print(f"{label}: {out['syncs']:g} host synchronisations per step "
+              f"{where} ({card})")
+    return out
+
+
+def _masked_cross_check(card, gen, rois, labels, batch_size=4):
+    """Phase 20: one fp32 masked step (``clat_stage1``, ``--masking_bn
+    chain``, dropout 0, so that the Kronecker masks are ones) on the card
+    (kernel path, TF32 off) against the CPU (plain path, oneDNN off), from
+    the same state, views and SLIC labels, with the same flips and jitter
+    factors (drawn once, given to both).  The saliency masks of the step
+    equal; the loss parts at rtol 2e-3 / atol 5e-4; Adam's first moment of
+    the heads (outside the ResNet trunk, but the three biases that feed a
+    train-mode BatchNorm, as phase 9) at rtol 2e-3 and an atol of 2e-3 of
+    each tensor's largest element, the trunk's by the norm of the
+    difference at 2e-2; both models' BatchNorm buffers after the step at
+    rtol 2e-3 / atol 5e-4."""
+    import copy
+
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.data import augment
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import make_lr_schedule
+    from multimodal_learning_tpu_torch.train import steps
+
+    opt = Options(**{**CLAT1_CONFIG, "compute_dtype": "float32",
+                     "dropout_rate": 0.0, "batch_size": batch_size})
+    model = define_model(opt, generator=torch.Generator().manual_seed(SEED))
+    batch = _masked_batch(opt, gen, "cpu", rois, labels)
+    draws = augment.draw_views(gen, batch_size, 4, "cpu")
+    orig_aug, orig_mask = (steps.augment_views_with_mask,
+                           steps.superpixel_attention_mask)
+    masks = {}
+
+    def aug(g, v, m, jitter=True, dtype=torch.float32):
+        on = lambda t: type(t)(*(x.to(v.device) for x in t))
+        return augment.augment_views_with_mask_apply(
+            v, m, [(on(f), on(j)) for f, j in draws], dtype)
+
+    def record(*args):
+        out = orig_mask(*args)
+        masks[args[1].device.type] = [t.cpu() for t in out]
+        return out
+
+    steps.augment_views_with_mask = aug
+    steps.superpixel_attention_mask = record
+    results = {}
+    try:
+        for where in ("cuda", "cpu"):
+            state = steps.init_teacher_state(
+                opt, copy.deepcopy(model), make_lr_schedule(opt, 50),
+                opt.n_data, seed=SEED, device=where)
+            b = {k: v.to(where) for k, v in batch.items()}
+            with torch.backends.mkldnn.flags(enabled=False):
+                _, metrics = steps.build_teacher_train_step(
+                    opt, masking=True)(state, b, 0.1)
+            adam = state.optimizer.optimizer.state
+            results[where] = (
+                {k: v.cpu() for k, v in metrics.items()},
+                {n: adam[p]["exp_avg"].cpu()
+                 for n, p in state.model.named_parameters()},
+                {f"{side}.{n}": t.cpu() for side, mod in
+                 (("model", state.model), ("ema", state.ema_model))
+                 for n, t in mod.named_buffers()})
+    finally:
+        steps.augment_views_with_mask = orig_aug
+        steps.superpixel_attention_mask = orig_mask
+    for name, got, want in zip(("path", "omic"), masks["cuda"],
+                               masks["cpu"]):
+        if not torch.equal(got, want):
+            raise AssertionError(f"fp32 masked step: the {name} saliency "
+                                 "masks differ between card and CPU")
+    (m_gpu, mu_gpu, bn_gpu), (m_cpu, mu_cpu, bn_cpu) = (results["cuda"],
+                                                        results["cpu"])
+    for k in m_cpu:
+        torch.testing.assert_close(m_gpu[k].float(), m_cpu[k].float(),
+                                   rtol=2e-3, atol=5e-4, msg=k)
+    for k in bn_cpu:
+        torch.testing.assert_close(bn_gpu[k], bn_cpu[k], rtol=2e-3,
+                                   atol=5e-4, msg=f"buffer {k}")
+    before_bn = {"fusion.encoder1.0.bias", "fusion.encoder2.0.bias",
+                 "path_net.fc_new1.0.bias"}
+    worst_el, worst_norm = 0.0, 0.0
+    for n, want in mu_cpu.items():
+        diff = mu_gpu[n] - want
+        if n.startswith("path_net.") and not n.startswith(
+                ("path_net.fc_new1", "path_net.fc_new2")):
+            rel = (diff.norm() / want.norm().clamp_min(1e-30)).item()
+            if rel > 2e-2:
+                raise AssertionError(f"masked exp_avg {n}: |card - cpu| / "
+                                     f"|cpu| = {rel:.3e} > 2e-2")
+            worst_norm = max(worst_norm, rel)
+            continue
+        if n in before_bn:
+            continue
+        atol = max(1e-6, 2e-3 * want.abs().max().item())
+        torch.testing.assert_close(mu_gpu[n], want, rtol=2e-3, atol=atol,
+                                   msg=f"masked exp_avg {n}")
+        worst_el = max(worst_el, (diff.abs().max()
+                                  / want.abs().max().clamp_min(1e-30)).item())
+    print("fp32 masked step card vs cpu, loss parts:", {
+        k: f"{float(m_gpu[k]):.6f}/{float(m_cpu[k]):.6f}" for k in m_cpu},
+          f"({card})")
+    print(f"fp32 masked step card vs cpu: saliency masks equal ("
+          f"{int(masks['cpu'][0].sum())} path pixels, "
+          f"{int(masks['cpu'][1].sum())} omic features masked); "
+          f"{len(bn_cpu)} BatchNorm buffers agree; exp_avg heads worst "
+          f"max|diff| / max|cpu| = {worst_el:.3e}, trunk worst |diff| / "
+          f"|cpu| = {worst_norm:.3e} (batch {batch_size}, 512^2; {card})")
+
+
+def _clat_batch(opt, gen, dev):
+    b, n = opt.batch_size, opt.n_data
+    index = torch.randperm(n, generator=gen)[:b]
+    sample_idx = torch.randint(0, n, (b, 1 + opt.nce_k), generator=gen)
+    sample_idx[:, 0] = index
+    batch = {"omic": torch.randn(b, opt.input_size_omic, generator=gen),
+             "g": torch.randint(0, opt.label_dim, (b,), generator=gen),
+             "index": index, "sample_idx": sample_idx,
+             "path_views": torch.randint(
+                 0, 256, (b, 2, opt.input_size_path, opt.input_size_path, 3),
+                 dtype=torch.uint8, generator=gen)}
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _clat_path(card, gen, dev, teacher_sd, pos_extra="neighbors",
+               reweight_on=False, teacher_bn="batch", paired=False,
+               n_windows=1, per_window=5, n_warm=2, n_prof=0):
+    """Phase 21: the CLAT student's step at full width (``clat_stage2`` as
+    published: nce_p 6, nce_k 4096, GK_refine with the 0.25 threshold, two
+    teachers, max_discrep 1; bf16, 512^2, batch 16) through
+    ``freeze_teacher`` on phase 19's masked teacher, ``init_student_state``
+    (banks of 8192 rows) and ``build_clat_student_step``.  Per step: B1
+    once (``--teacher_bn batch``) or B2 once (``running``), B3 and B4
+    never, B5 16 times with ``--paired_conv``; finite metrics; the
+    teacher's buffers bitwise unchanged."""
+    from torch.nn import functional as F
+
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import (make_lr_schedule,
+                                                     student, student_clat)
+
+    opt = Options(**{**CLAT2_CONFIG, "pos_extra": pos_extra,
+                     "teacher_bn": teacher_bn, "paired_conv": paired})
+    teacher = define_model(opt, generator=torch.Generator())
+    teacher.load_state_dict(teacher_sd)
+    teacher = student.freeze_teacher(teacher, dev)
+    before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    state = student.init_student_state(
+        opt, define_model(opt, path_only=True,
+                          generator=torch.Generator().manual_seed(SEED)),
+        make_lr_schedule(opt, steps_per_epoch=50), opt.n_data, seed=SEED)
+    class_mask = F.one_hot(torch.randint(0, opt.label_dim, (opt.n_data,),
+                                         generator=gen),
+                           opt.label_dim).t().float().to(dev)
+    batch = _clat_batch(opt, gen, dev)
+    step = student_clat.build_clat_student_step(opt, teacher, class_mask)
+
+    def fn():
+        return step(state, batch, reweight_on)
+
+    for _ in range(n_warm):
+        fn()
+    torch.cuda.synchronize()
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    host_ms, windows, history = _windows(fn, n_windows, per_window)
+    launches = {name: c.launches for name, c in counters.items()}
+    n = n_windows * per_window
+    want = {"kron_train_fwd": n if teacher_bn == "batch" else 0,
+            "kron_fwd": n if teacher_bn == "running" else 0,
+            "kron_bwd_dw": 0, "kron_bwd_dvec": 0,
+            "conv3x3": 16 * n if paired else 0}
+    label = (f"CLAT student step ({pos_extra}, teacher_bn {teacher_bn}, "
+             f"reweight {'on' if reweight_on else 'off'}"
+             + (", paired_conv)" if paired else ")"))
+    print(f"{label}: {n} steps, launches {launches} ({card})")
+    if launches != want:
+        raise RuntimeError(f"{label} launched {launches}, expected {want}")
+    for metrics in history:
+        for k, v in metrics.items():
+            if not torch.isfinite(v).all():
+                raise RuntimeError(f"{label}: metric {k} is not finite")
+    w1 = float(history[-1]["w1_mean"])
+    if (w1 < 1.0) if reweight_on else (w1 != 1.0):
+        raise RuntimeError(f"{label}: w1_mean {w1} with reweight "
+                           f"{reweight_on}")
+    for k, v in teacher.state_dict().items():
+        if not torch.equal(v, before[k]):
+            raise RuntimeError(f"{label}: the frozen teacher's {k} changed")
+    print(f"{label} metrics, last step:", {
+        k: [round(x, 5) for x in v.flatten().tolist()] if v.numel() > 1
+        else round(float(v), 5) for k, v in history[-1].items()},
+          f"({card})")
+    print(f"timing {label}: host {host_ms:.3f} ms per step of "
+          f"{opt.batch_size} (median of {n_windows} windows of {per_window}:"
+          f" {', '.join(f'{w:.3f}' for w in windows)}), bf16, 512^2, nce_p "
+          f"{opt.nce_p}, nce_k {opt.nce_k}, banks of {opt.n_data} rows, "
+          f"device-resident batch ({card})")
+    out = {"host_ms": host_ms, "launches": launches}
+    if n_prof:
+        kron = "B1" if teacher_bn == "batch" else "B2"
+        out.update(_profile_steps(fn, card, n_prof, label=label, kernels=(
+            ("B5 (conv3x3)", "conv3x3"),
+            (f"{kron} (kron_gemm_kernel + kron_reduce_kernel)", "kron_"))))
+        out["syncs"], where = _count_syncs(fn, 3)
+        print(f"{label}: {out['syncs']:g} host synchronisations per step "
+              f"{where} ({card})")
+    return out
+
+
+def _clat_chain(card, n_train=64, n_test=32, teacher_epochs=2):
+    """Phase 22: the MIA-2023 chain through the CLIs as a user runs them,
+    on one synthetic fold at full width with ``--paired_conv True``:
+    ``cli.train_cv_MT_SP_Masking`` (the ``clat_stage1`` flags,
+    ``--start_epoch 1``, 2 epochs: the second runs the masked step on the
+    loader's SLIC maps), ``cli.train_cv_path_CLAT`` (the ``clat_stage2``
+    flags on that teacher, 1 epoch, so that the best checkpoint is the
+    final one; its feature diagnostics evaluate the teacher) and
+    ``cli.test_cv_path``, which must reproduce the student's final eval
+    exactly.  Launches are checked per step and per eval forward.
+    Returns each driver's launches and wall seconds."""
+    from multimodal_learning_tpu_torch.cli import (test_cv_path,
+                                                   train_cv_MT_SP_Masking,
+                                                   train_cv_path_CLAT)
+    from multimodal_learning_tpu_torch.eval import load_pred_test
+    from multimodal_learning_tpu_torch.eval.metrics import (
+        extended_grading_metrics, one_hot)
+
+    bs = PAPER["batch_size"]
+    steps, fwd = n_train // bs, -(-n_test // bs)
+    counters = _counters()
+    common = {**PAPER, "paired_conv": True, "synthetic_data": True,
+              "synthetic_folds": 1}
+    teacher = {**CLAT1_CONFIG, **common, "niter_decay": teacher_epochs,
+               "model_name": "smoke_clat1"}
+    teacher.pop("n_data")
+    student_flags = {**common, **CLAT2_FLAGS, "niter_decay": 1,
+                     "fixed_model": "smoke_clat1",
+                     "model_name": "smoke_clat2"}
+    out = {}
+
+    def run(main, cfg, root, want, what):
+        for c in counters.values():
+            c.launches = 0
+        flags = [a for k, v in cfg.items() for a in (f"--{k}", str(v))]
+        t0 = time.perf_counter()
+        res = main(flags + ["--checkpoints_dir", root])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {name: c.launches for name, c in counters.items()}
+        print(f"MIA-2023 chain: {what} in {wall:.2f} s, launches {got} "
+              f"({card})")
+        want = {name: want.get(name, 0) for name in counters}
+        if got != want:
+            raise RuntimeError(f"{what} launched {got}, expected {want}")
+        out[what.split(" ")[0]] = {"launches": got, "wall_s": wall}
+        return res
+
+    with tempfile.TemporaryDirectory() as root:
+        e, plain = teacher_epochs, teacher["start_epoch"]
+        masked = e - plain
+        run(train_cv_MT_SP_Masking.main, teacher, root,
+            {"conv3x3": (12 * plain + 36 * masked) * steps + 4 * e * fwd,
+             "kron_train_fwd": (2 * plain + 6 * masked) * steps,
+             "kron_fwd": masked * steps + e * fwd,
+             "kron_bwd_dvec": masked * steps},
+            f"train_cv_MT_SP_Masking ({plain * steps} plain and "
+            f"{masked * steps} masked steps, {e} evals of {n_test} ROIs)")
+        final = run(train_cv_path_CLAT.main, student_flags, root,
+                    {"conv3x3": 16 * steps + 4 * fwd + 4 * fwd,
+                     "kron_train_fwd": steps, "kron_fwd": fwd},
+                    f"train_cv_path_CLAT ({steps} steps, 1 eval of {n_test}"
+                    f" ROIs, the teacher's eval for the diagnostics)")[1]
+        ext = run(test_cv_path.main, {**student_flags, "niter_decay": 1},
+                  root, {"conv3x3": 4 * fwd}, "test_cv_path")
+        ckpt_dir = os.path.join(root, "grad_15", "smoke_clat2")
+        with open(os.path.join(ckpt_dir, "metrics.jsonl")) as fh:
+            for line in fh:
+                rec = json.loads(line)
+                print(f"MIA-2023 chain: student epoch {rec['epoch']:g} "
+                      f"{rec['samples_per_s']:.1f} patches/s through the "
+                      f"loader and prefetcher, loss {rec['train_loss']:.5f} "
+                      f"({card})")
+        dumped = load_pred_test(os.path.join(ckpt_dir,
+                                             "smoke_clat2_1_pred_test.pkl"))
+    if not np.array_equal(dumped["probs"]["path"], final["probs"]["path"]):
+        raise RuntimeError("test_cv_path's probabilities differ from the "
+                           "CLAT student's training-time final eval")
+    if not np.isfinite(final["probs"]["path"]).all():
+        raise RuntimeError("the CLAT student's probabilities are not finite")
+    want = extended_grading_metrics(one_hot(final["gt"], 3),
+                                    final["probs"]["path"])
+    if ext != [want] or final["ext_metrics"] != want:
+        raise RuntimeError(f"test_cv_path's metrics {ext} differ from the "
+                           f"final eval's {want}")
+    print("MIA-2023 chain: test_cv_path reproduces the CLAT student's final "
+          "eval exactly;", {k: round(v, 5) for k, v in want.items()},
+          "similarity diagnostics", {
+              k: round(v, 5) for k, v in
+              final["similarity_diagnostics"].items()}, f"({card})")
+    return out
+
+
 def _time_conv(gen, dev, card, flush):
     """B5, its plain version and ``F.conv2d`` (the one PyTorch call that
     computes the same function; the plain version is that call too) at
@@ -1457,6 +1955,12 @@ def main() -> int:
     from multimodal_learning_tpu_torch.utils import save_checkpoint
 
     dev = torch.device("cuda")
+    t_run = time.perf_counter()
+
+    def stamp(phase):
+        print(f"[chip_smoke] phase {phase} starts at "
+              f"{time.perf_counter() - t_run:.1f} s")
+
     # 1. the card
     card = _card()
     print(card)
@@ -1619,6 +2123,7 @@ def main() -> int:
     del infer, xb, ob
 
     # 7. the teacher's train path at full width, and 8. the saliency pass
+    stamp(7)
     state, tbatch, train_launches, step = _train_path(card, gen, dev)
     b1_launches = train_launches["kron_matmul_dropout"]
     sal_launches, sal_ms, sal_b4_ms, sal_dev_ms = _saliency_pass(
@@ -1637,10 +2142,12 @@ def main() -> int:
     del state, tbatch, step, paired
     torch.cuda.empty_cache()
     # 12. the CV drivers at full width under --paired_conv
+    stamp(12)
     cv_launches = _cv_drivers(card)
     # 13. B5's timing
     ctimes = _time_conv(gen, dev, card, flush)
     # 14. the MICCAI student's step on phase 7's teacher: --teacher_bn batch
+    stamp(14)
     # (B1), running (B2), and batch under --paired_conv (B5)
     students = {(bn, paired): _student_path(card, gen, dev, teacher_sd, bn,
                                             paired)
@@ -1653,7 +2160,61 @@ def main() -> int:
     # 16. one fp32 student step, card against CPU
     _student_cross_check(card, gen, teacher_sd)
     # 17. the MIA-2022 chain through the CLIs
+    stamp(17)
     chain = _mia_chain(card)
+    torch.cuda.empty_cache()
+    # 18. SLIC on this machine
+    stamp(18)
+    rois, sp_labels, slic_stats = _slic_phase(card, gen)
+    # 19. the masked CLAT teacher's step: chain, chain paired, discard
+    masked = {
+        ("chain", False): _masked_path(card, gen, dev, rois, sp_labels),
+        ("chain", True): _masked_path(card, gen, dev, rois, sp_labels,
+                                      paired=True),
+        ("discard", False): _masked_path(card, gen, dev, rois, sp_labels,
+                                         masking_bn="discard", n_windows=1,
+                                         n_prof=0)}
+    clat_teacher_sd = {k: v.detach().clone() for k, v in masked[
+        "chain", False]["state"].model.state_dict().items()}
+    for r in masked.values():
+        del r["state"]
+    torch.cuda.empty_cache()
+    # 20. one fp32 masked step, card against CPU
+    stamp(20)
+    _masked_cross_check(card, gen, rois, sp_labels)
+    # 21. the CLAT student's step on phase 19's teacher
+    stamp(21)
+    clat = {
+        "neighbors": _clat_path(card, gen, dev, clat_teacher_sd,
+                                n_windows=4, n_warm=3, n_prof=3),
+        "reweight": _clat_path(card, gen, dev, clat_teacher_sd,
+                               reweight_on=True),
+        "centers": _clat_path(card, gen, dev, clat_teacher_sd,
+                              pos_extra="centers", n_prof=3),
+        "running": _clat_path(card, gen, dev, clat_teacher_sd,
+                              teacher_bn="running"),
+        "paired": _clat_path(card, gen, dev, clat_teacher_sd, paired=True,
+                             n_prof=3)}
+    torch.cuda.empty_cache()
+    # 22. the MIA-2023 chain through the CLIs
+    stamp(22)
+    clat_chain = _clat_chain(card)
+    print("MIA-2023 steps per step (bf16, 512^2, batch 16): " + "; ".join(
+        f"{name}: host {r['host_ms']:.3f} ms, kernels "
+        f"{r.get('kernel_ms', float('nan')):.3f} ms, busy "
+        f"{100 * r.get('busy', float('nan')):.1f}%, "
+        f"{r.get('syncs', float('nan')):g} syncs"
+        for name, r in (("masked chain", masked["chain", False]),
+                        ("masked chain paired", masked["chain", True]),
+                        ("masked discard", masked["discard", False]),
+                        ("CLAT neighbors", clat["neighbors"]),
+                        ("CLAT centers", clat["centers"]),
+                        ("CLAT paired", clat["paired"]))) + f"; SLIC "
+          f"{slic_stats['ms']:.3f} ms per 512^2 ROI on the host ({card})")
+    b4_step = masked["chain", False].get("kron_dvec", float("nan"))
+    print(f"B4 per masked step: 1 launch, {b4_step:.5f} ms of "
+          f"{masked['chain', False].get('kernel_ms', float('nan')):.3f} ms "
+          f"of kernels ({card})")
     print("MIA-2022 steps per step (bf16, 512^2, batch 16): " + "; ".join(
         f"{name}: host {r['host_ms']:.3f} ms, kernels "
         f"{r.get('kernel_ms', float('nan')):.3f} ms, busy "
@@ -1667,7 +2228,13 @@ def main() -> int:
             "serving (export + predict)": kron_launches,
             "student step, teacher_bn running (20 steps)":
                 students["running", False]["launches"]["kron_fwd"],
-            "train_cv_MT --tSVD_loss evals": chain["train_cv_MT"]["kron_fwd"]},
+            "train_cv_MT --tSVD_loss evals": chain["train_cv_MT"]["kron_fwd"],
+            "masked teacher step, saliency (20 steps)":
+                masked["chain", False]["launches"]["kron_fwd"],
+            "CLAT student step, teacher_bn running (5 steps)":
+                clat["running"]["launches"]["kron_fwd"],
+            "MIA-2023 CLI chain": sum(
+                c["launches"]["kron_fwd"] for c in clat_chain.values())},
         "kron_train_fwd": {
             "teacher train step (20 steps)": b1_launches,
             "student step, teacher_bn batch (20 steps)":
@@ -1675,14 +2242,32 @@ def main() -> int:
             "t-SVD teacher step (20 steps)":
                 tsvd["launches"]["kron_train_fwd"],
             "MIA-2022 CLI chain": chain["train_cv_MT"]["kron_train_fwd"]
-            + chain["train_cv_path_multi_MT"]["kron_train_fwd"]},
+            + chain["train_cv_path_multi_MT"]["kron_train_fwd"],
+            "masked teacher step (20 steps)":
+                masked["chain", False]["launches"]["kron_train_fwd"],
+            "CLAT student step, teacher_bn batch (20 steps)":
+                clat["neighbors"]["launches"]["kron_train_fwd"],
+            "MIA-2023 CLI chain": sum(
+                c["launches"]["kron_train_fwd"]
+                for c in clat_chain.values())},
         "kron_bwd_dw": {},
-        "kron_bwd_dvec": {"saliency call": sal_launches["kron_bwd_dvec"]},
+        "kron_bwd_dvec": {
+            "saliency call": sal_launches["kron_bwd_dvec"],
+            "masked teacher step (20 steps)":
+                masked["chain", False]["launches"]["kron_bwd_dvec"],
+            "MIA-2023 CLI chain": sum(
+                c["launches"]["kron_bwd_dvec"] for c in clat_chain.values())},
         "conv3x3": {
             "cv drivers": cv_launches["conv3x3"],
             "student step, paired_conv (20 steps)":
                 students["batch", True]["launches"]["conv3x3"],
-            "MIA-2022 CLI chain": sum(c["conv3x3"] for c in chain.values())},
+            "MIA-2022 CLI chain": sum(c["conv3x3"] for c in chain.values()),
+            "masked teacher step, paired_conv (20 steps)":
+                masked["chain", True]["launches"]["conv3x3"],
+            "CLAT student step, paired_conv (5 steps)":
+                clat["paired"]["launches"]["conv3x3"],
+            "MIA-2023 CLI chain": sum(
+                c["launches"]["conv3x3"] for c in clat_chain.values())},
     }
 
     kernels = [{
@@ -1729,7 +2314,8 @@ def main() -> int:
         if name == "kron_bwd_dvec":
             kernels[-1].update(saliency_ms=sal_ms,
                                saliency_kernel_ms=sal_dev_ms,
-                               saliency_b4_ms=sal_b4_ms)
+                               saliency_b4_ms=sal_b4_ms,
+                               masked_step_ms=b4_step)
     t, bound_ms, bound_by = ctimes[torch.bfloat16]
     t32, bound32, _ = ctimes[torch.float32]
     kernels.append({
@@ -1749,6 +2335,8 @@ def main() -> int:
         "fp32_max_abs_err": conv_errs[torch.float32]})
     for k in kernels:
         k["launched_by"] = launched_by[k["name"]]
+    print(f"[chip_smoke] phases 1-22 in {time.perf_counter() - t_run:.1f} s "
+          f"({card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,12 +12,20 @@ Drawing the random factors (``draw_flips``, ``draw_jitter``, from a
 ``torch.Generator`` on the batch's device) is split from applying them
 (``apply_flips``, ``apply_color_jitter``, ``augment_view_apply``), so a
 test can feed both packages the same flips and factors.  The work runs in
-the compute dtype; the contrast mean accumulates in float32.
+the compute dtype; the contrast mean accumulates in float32.  The colour
+constants live on the device, built once per (device, dtype): a
+``torch.tensor(..., device="cuda")`` per call would be a pageable copy
+that waits for the device, three times per view.
+
+The masked CLAT teacher's views (``augment_views_with_mask``, reference
+``data_loaders_MT_SP.py:158-212``): view 0 and its SLIC label map share
+their flips, and the other views are augmented independently.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -74,18 +82,27 @@ def random_flips(gen: Optional[torch.Generator], x: torch.Tensor
     return apply_flips(x, draw_flips(gen, x.shape[0], x.device))
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, device: torch.device,
+              dtype: torch.dtype) -> torch.Tensor:
+    """``values`` as a tensor on ``device``, built (and copied there) once
+    per process and (device, dtype): three small tensors for each, which
+    callers only read."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def hue_rotation_matrices(theta: torch.Tensor) -> torch.Tensor:
     """Per-sample RGB hue-rotation matrices by a rotation in YIQ space
     (theta [B] radians -> [B, 3, 3], float32), the JAX package's
     ``_hue_rotation_matrices``."""
-    kw = dict(dtype=torch.float32, device=theta.device)
     c, s = torch.cos(theta), torch.sin(-theta)
     zeros, ones = torch.zeros_like(c), torch.ones_like(c)
     rot = torch.stack([torch.stack([ones, zeros, zeros], -1),
                        torch.stack([zeros, c, -s], -1),
                        torch.stack([zeros, s, c], -1)], -2)
-    return torch.einsum("ij,bjk,kl->bil", torch.tensor(_YIQ2RGB, **kw), rot,
-                        torch.tensor(_RGB2YIQ, **kw))
+    return torch.einsum(
+        "ij,bjk,kl->bil", _constant(_YIQ2RGB, theta.device, torch.float32),
+        rot, _constant(_RGB2YIQ, theta.device, torch.float32))
 
 
 def apply_color_jitter(x: torch.Tensor, f: Jitter) -> torch.Tensor:
@@ -94,7 +111,7 @@ def apply_color_jitter(x: torch.Tensor, f: Jitter) -> torch.Tensor:
     (blend with the gray), hue; each clipped to [0, 1]."""
     dt = x.dtype
     col = lambda t: t.to(dt)[:, None, None, None]
-    w = torch.tensor(_GRAY, dtype=dt, device=x.device)
+    w = _constant(_GRAY, x.device, dt)
 
     def gray(y):
         return w[0] * y[..., :1] + w[1] * y[..., 1:2] + w[2] * y[..., 2:3]
@@ -142,11 +159,59 @@ def augment_view(gen: Optional[torch.Generator], imgs_u8: torch.Tensor,
                               dtype)
 
 
+def draw_views(gen: Optional[torch.Generator], b: int, n_views: int,
+               device, jitter: bool = True
+               ) -> List[Tuple[Flips, Optional[Jitter]]]:
+    """The flips and (unless ``jitter`` is False) jitter factors of
+    ``n_views`` independent views, view by view, as ``augment_view`` draws
+    each."""
+    return [(draw_flips(gen, b, device),
+             draw_jitter(gen, b, device) if jitter else None)
+            for _ in range(n_views)]
+
+
+def augment_views_apply(views_u8: torch.Tensor,
+                        draws: List[Tuple[Flips, Optional[Jitter]]],
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """View ``i`` of views_u8 [B, V, H, W, 3] augmented with ``draws[i]``
+    -> [B, V, H, W, 3] in ``dtype``."""
+    return torch.stack([augment_view_apply(views_u8[:, i], f, j, dtype)
+                        for i, (f, j) in enumerate(draws)], dim=1)
+
+
 def augment_views(gen: Optional[torch.Generator], views_u8: torch.Tensor,
                   jitter: bool = True, dtype: torch.dtype = torch.float32
                   ) -> torch.Tensor:
     """TransformTwice (``data_loaders_MT.py:263-270``): each of V
     host-cropped views augmented independently.
     views_u8 [B, V, H, W, 3] -> [B, V, H, W, 3] in ``dtype``."""
-    return torch.stack([augment_view(gen, views_u8[:, i], jitter, dtype)
-                        for i in range(views_u8.shape[1])], dim=1)
+    b, v = views_u8.shape[:2]
+    return augment_views_apply(
+        views_u8, draw_views(gen, b, v, views_u8.device, jitter), dtype)
+
+
+def augment_views_with_mask_apply(
+    views_u8: torch.Tensor, sp_mask: torch.Tensor,
+    draws: List[Tuple[Flips, Optional[Jitter]]],
+    dtype: torch.dtype = torch.float32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``augment_views_with_mask`` with given factors: view ``i`` takes
+    ``draws[i]``, and the label map ``sp_mask`` [B, H, W] takes view 0's
+    flips.  Returns ([B, V, H, W, 3] in ``dtype``, the flipped map)."""
+    return (augment_views_apply(views_u8, draws, dtype),
+            apply_flips(sp_mask[..., None], draws[0][0])[..., 0])
+
+
+def augment_views_with_mask(gen: Optional[torch.Generator],
+                            views_u8: torch.Tensor, sp_mask: torch.Tensor,
+                            jitter: bool = True,
+                            dtype: torch.dtype = torch.float32
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The masked CLAT teacher's views (the JAX package's
+    ``augment_views_with_mask``): views_u8 [B, V, H, W, 3] uint8 and
+    sp_mask [B, H, W] integer -> (views [B, V, H, W, 3] in ``dtype``,
+    sp_mask flipped as view 0)."""
+    b, v = views_u8.shape[:2]
+    return augment_views_with_mask_apply(
+        views_u8, sp_mask, draw_views(gen, b, v, views_u8.device, jitter),
+        dtype)

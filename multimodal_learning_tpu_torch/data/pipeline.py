@@ -22,8 +22,10 @@ Batch dict layout (train, mode=pathomic):
     e, t       [B] float32,  g [B] int32
     index      [B] int32,  sample_idx [B, P+K] int32
 
-The SLIC superpixel masks of the masked CLAT teacher come with ROADMAP
-A13.
+For the masked CLAT teacher (``superpixels > 0``) each ROI's SLIC label
+map is computed once on the host (``masking/slic.py``) and cached, the
+loader draws 4 views, and the batch also carries
+    sp_mask    [B, S, S] int32     the label map cropped as view 0
 """
 from __future__ import annotations
 
@@ -58,7 +60,8 @@ class PathomicDataset:
     ``data_loaders_MT.py:83-260``)."""
 
     def __init__(self, opt, data: Dict, split: str, train: bool,
-                 contrast: bool = False, cache_images: bool = True):
+                 contrast: bool = False, cache_images: bool = True,
+                 superpixels: int = 0):
         d = data[split]
         self.X_path = d["x_path"]
         self.X_omic = np.asarray(d["x_omic"], dtype=np.float32)
@@ -75,6 +78,10 @@ class PathomicDataset:
         self.cache_images = cache_images and self.mode != "omic"
         self._cache: Dict[int, np.ndarray] = {}
         self._cache_lock = threading.Lock()
+        # SLIC label maps of the masked CLAT teacher, one per ROI
+        # (reference data_loaders_MT_SP.py:116-125,296-313)
+        self.superpixels = superpixels
+        self._slic_cache: Dict[int, np.ndarray] = {}
         self.sampler: Optional[ContrastSampler] = None
         if contrast:
             self.sampler = ContrastSampler(
@@ -97,22 +104,47 @@ class PathomicDataset:
                 self._cache[i] = img
         return img
 
-    def crops(self, i: int, n_views: int,
-              rng: np.random.Generator) -> np.ndarray:
-        """n_views random crops [V, S, S, 3] uint8 (RandomCrop(512))."""
+    def slic(self, i: int) -> np.ndarray:
+        """The SLIC label map of ROI ``i`` (int32 [H, W]), cached."""
+        with self._cache_lock:
+            m = self._slic_cache.get(i)
+        if m is not None:
+            return m
+        from ..masking.slic import slic_segment
+        m = slic_segment(self.image(i), self.superpixels, 10.0)
+        with self._cache_lock:
+            self._slic_cache[i] = m
+        return m
+
+    def crops(self, i: int, n_views: int, rng: np.random.Generator,
+              with_mask: bool = False):
+        """n_views random crops [V, S, S, 3] uint8 (RandomCrop(512)); with
+        ``with_mask`` also the SLIC label map cropped as view 0."""
         img = self.image(i)
         h, w = img.shape[:2]
         s = self.crop
+        pad = None
         if h < s or w < s:  # RandomCrop pads symmetrically when smaller
             ph, pw = max(0, s - h), max(0, s - w)
-            img = np.pad(img, ((ph // 2, ph - ph // 2),
-                               (pw // 2, pw - pw // 2), (0, 0)))
+            pad = ((ph // 2, ph - ph // 2), (pw // 2, pw - pw // 2))
+            img = np.pad(img, (*pad, (0, 0)))
             h, w = img.shape[:2]
         views = np.empty((n_views, s, s, 3), dtype=np.uint8)
+        mask = None
         for v in range(n_views):
             top = rng.integers(0, h - s + 1)
             left = rng.integers(0, w - s + 1)
             views[v] = img[top:top + s, left:left + s]
+            if with_mask and v == 0:
+                # the label map padded as the image (with id 0), so that
+                # it stays aligned; the JAX package pads it at the end
+                # only (ROADMAP C)
+                sp = self.slic(i)
+                if pad is not None:
+                    sp = np.pad(sp, pad)
+                mask = sp[top:top + s, left:left + s]
+        if with_mask:
+            return views, mask
         return views
 
 
@@ -151,14 +183,21 @@ class Loader:
         }
         if ds.mode != "omic":
             seeds = self.rng.integers(0, 2 ** 63, size=len(idx))
+            with_mask = ds.superpixels > 0
 
             def job(args):
                 i, s = args
                 return ds.crops(int(i), self.n_views,
-                                np.random.default_rng(int(s)))
+                                np.random.default_rng(int(s)),
+                                with_mask=with_mask)
 
-            batch["path_views"] = np.stack(list(self.pool.map(
-                job, zip(idx, seeds))))  # [B, V, S, S, 3]
+            out = list(self.pool.map(job, zip(idx, seeds)))
+            if with_mask:
+                batch["path_views"] = np.stack([v for v, _ in out])
+                batch["sp_mask"] = np.stack([m for _, m in out]).astype(
+                    np.int32)
+            else:
+                batch["path_views"] = np.stack(out)  # [B, V, S, S, 3]
         if ds.sampler is not None:
             batch["sample_idx"] = ds.sampler.draw_batch(idx)
         return batch

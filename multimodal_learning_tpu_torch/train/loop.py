@@ -20,8 +20,13 @@ The t-SVD teacher (``--tSVD_loss``) refreshes its ADMM tensors every
 (``batch_idx % aux_iter == 0``, as the JAX loop does), so no device read
 decides it.
 
-Refused, naming their ROADMAP items: the masked CLAT teacher (A13),
-mmdynamics (A17), ``--data_parallel`` above 1 (A19).
+The masked CLAT teacher (``--masking 1``, mode pathomic) trains on 4
+views with the SLIC label maps of ``--num_superpixels`` segments and
+switches to the masked step once ``epoch > --start_epoch``
+(``train_test_MT_SP_Masking.py:199``).
+
+Refused, naming their ROADMAP items: mmdynamics (A17) and
+``--data_parallel`` above 1 (A19).
 """
 from __future__ import annotations
 
@@ -50,8 +55,6 @@ _BRANCHES = ("fuse", "path", "omic")
 
 def _refuse_unported(opt) -> None:
     for cond, what in (
-            (bool(opt.masking) and opt.mode == "pathomic",
-             "--masking (the masked CLAT teacher): ROADMAP A13"),
             (opt.mode == "pathomic" and opt.fusion_type == "mmdynamics",
              "--fusion_type mmdynamics: ROADMAP A17"),
             (opt.data_parallel > 1, "--data_parallel > 1: ROADMAP A19")):
@@ -148,6 +151,10 @@ def fold_payload(opt, fold, epoch, state, metrics, with_crd=False) -> Dict:
     return payload
 
 
+def _use_masking(opt) -> bool:
+    return bool(opt.masking) and opt.mode == "pathomic"
+
+
 def train_teacher(opt, data: Dict, fold: int,
                   patches_data: Optional[Dict] = None, log=print,
                   device=None) -> Tuple[Dict, Dict]:
@@ -157,11 +164,15 @@ def train_teacher(opt, data: Dict, fold: int,
     dev = resolve_device(device)
     split = data["cv_splits"][fold]
     need_contrast = opt.CRD_distill == 1 or opt.distill == "crd"
-    train_ds = PathomicDataset(opt, split, "train", train=True,
-                               contrast=need_contrast)
+    masking = _use_masking(opt)
+    train_ds = PathomicDataset(
+        opt, split, "train", train=True, contrast=need_contrast,
+        superpixels=opt.num_superpixels if masking else 0)
     test_ds = PathomicDataset(opt, split, "test", train=False)
+    # the masked teacher's 4 views: the student's, the EMA's and the two
+    # the EMA distils the masked forwards on (data_loaders_MT_SP.py:446-453)
     loaders = [Loader(train_ds, opt.batch_size, shuffle=True, drop_last=True,
-                      n_views=2, workers=opt.host_workers,
+                      n_views=4 if masking else 2, workers=opt.host_workers,
                       seed=opt.seed + fold),
                Loader(test_ds, opt.batch_size, shuffle=False,
                       drop_last=False, n_views=1, workers=opt.host_workers,
@@ -197,6 +208,8 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
         p.numel() for m in (state.model, state.embeds)
         for p in m.parameters()))
     train_step = build_teacher_train_step(opt)
+    masked_step = (build_teacher_train_step(opt, masking=True)
+                   if _use_masking(opt) else None)
     eval_step = build_eval_step(opt)
 
     total_epochs = opt.niter + opt.niter_decay
@@ -224,9 +237,11 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
         t0 = time.time()
         sums: Dict[str, torch.Tensor] = {}
         n_samples = 0
+        step_fn = (masked_step if masked_step is not None
+                   and epoch > opt.start_epoch else train_step)
         for batch_idx, batch in enumerate(PrefetchLoader(
                 train_loader, depth=opt.prefetch_depth, device=dev)):
-            state, metrics = train_step(
+            state, metrics = step_fn(
                 state, batch, crd_weight,
                 tsvd_update=batch_idx % opt.aux_iter == 0)
             n_samples += opt.batch_size

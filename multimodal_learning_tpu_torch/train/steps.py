@@ -20,8 +20,20 @@ both modalities, an ADMM refresh of the low-rank tensors by t-SVT (when
 the host says so, ``tsvd_update``), mu grown by ``pho`` up to ``max_mu``
 per refresh, and the Frobenius penalty ``mu/2 ||adj - aux||^2``.
 
-Not ported yet, and refused: the masked CLAT step (``masking=True``,
-ROADMAP A13), SupCon distillation (A15) and the mmdynamics fusion (A17).
+``masking=True`` builds the masked CLAT stage-1 step
+(``train_test_MT_SP_Masking.py:190-220``): four views and a SLIC label map;
+the saliency masks (``masking/superpixel.py``) from an eval-mode pass with
+the pre-step BatchNorm statistics, taken before the train-mode forwards
+rewrite them; a masked-path and a masked-omic student forward (the second
+reuses the main forward's path trunk, so autograd merges the trunk's
+backward into the main one), distilled against two EMA forwards on the
+extra views.  ``--masking_bn chain`` leaves the running statistics as the
+reference's sequence of forwards would (the trunk's pass that the reuse
+skips is replayed in closed form), ``discard`` keeps only the main and
+EMA forwards' updates.
+
+Not ported yet, and refused: SupCon distillation (ROADMAP A15) and the
+mmdynamics fusion (A17).
 """
 from __future__ import annotations
 
@@ -33,10 +45,12 @@ from torch import nn
 
 from ..contrast.crd import (Embed, contrast_loss, crd_gate_weights,
                             crd_scores, init_bank, weighted_contrast_loss)
-from ..data.augment import augment_view, augment_views
+from ..data.augment import (augment_view, augment_views,
+                            augment_views_with_mask)
 from ..losses import (cox_loss, l1_regularizer, nll_loss, orth_loss,
                       pred_kd_loss, sp_loss)
 from ..lowrank import build_view_features, update_adj_tensor, update_aux
+from ..masking.superpixel import frozen_params, superpixel_attention_mask
 from ..models.factory import _dtype
 from ..models.fusion import _KronEncoder1
 from ..models.pathomic import PathomicOutput
@@ -122,10 +136,8 @@ def _use_tsvd(opt) -> bool:
     return bool(opt.tSVD_loss) and opt.mode == "pathomic"
 
 
-def _refuse_unported(opt, masking: bool = False) -> None:
+def _refuse_unported(opt) -> None:
     for cond, what in (
-            (masking, "the masked CLAT stage-1 step (masking=True): "
-                      "ROADMAP A13"),
             (opt.supcon_distill == 1, "--supcon_distill: ROADMAP A15"),
             (opt.mode == "pathomic" and opt.fusion_type == "mmdynamics",
              "--fusion_type mmdynamics: ROADMAP A17")):
@@ -218,6 +230,80 @@ def _tsvd_loss(opt, tsvd: TsvdAux, out: PathomicOutput,
             "tnn_path": tsvd.tnn1.clone(), "tnn_omic": tsvd.tnn2.clone()}
 
 
+# BatchNorm momentum of every model BatchNorm in flax's convention
+# (running = mom * running + (1 - mom) * batch; JAX models/resnet.py:158)
+_BN_MOM = 0.9
+
+
+def _buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
+    return {n: b.clone() for n, b in module.named_buffers()}
+
+
+@torch.no_grad()
+def _restore_buffers(module: nn.Module, saved: Dict[str, torch.Tensor]
+                     ) -> None:
+    for n, b in module.named_buffers():
+        b.copy_(saved[n])
+
+
+def _saliency_masks(opt, model: nn.Module, x_path, batch, sp_mask):
+    """The saliency masks of the masked step (JAX ``train/steps.py:
+    396-404``): the fused NLL of ``model`` in eval mode, with its current
+    (pre-step) running statistics and its parameters frozen, so that the
+    pass takes input gradients only (B2 and B4 once, B3 never)."""
+    def cost_fn(xp, xo):
+        return nll_loss(model(x_path=xp, x_omic=xo).pred_fuse, batch["g"])
+
+    model.eval()
+    try:
+        with frozen_params(model):
+            return superpixel_attention_mask(
+                cost_fn, x_path, batch["omic"], sp_mask,
+                opt.num_superpixels, opt.Path_K, opt.Omic_K)
+    finally:
+        model.train()
+
+
+def _masking_loss(opt, model: nn.Module, ema: nn.Module, batch,
+                  out: PathomicOutput, x1, xm1, xm2, masks,
+                  r0: Optional[Dict[str, torch.Tensor]]) -> torch.Tensor:
+    """The comprehensive-learning loss (JAX ``train/steps.py:405-500``):
+    the pred-KD of a masked-path and a masked-omic student forward against
+    EMA forwards on the two extra views.  The second student forward
+    reuses the main forward's path outputs, not detached.  Runs after the
+    main forward; ``r0`` holds ``path_net``'s buffers from before it
+    (``--masking_bn chain``)."""
+    path_mask, omic_mask = masks
+    chain = opt.masking_bn == "chain"
+    if chain:
+        r1 = _buffers(model.path_net)
+    else:
+        r1, e1 = _buffers(model), _buffers(ema)
+    omic = batch["omic"]
+    out_m1 = adapt_output(opt, model(
+        x_path=x1 * (1.0 - path_mask[..., None]), x_omic=omic))
+    out_m2 = adapt_output(opt, model(
+        x_omic=omic * (1.0 - omic_mask),
+        path_feats=(out.path_feat_f3, out.path_feat, out.hazard_path,
+                    out.pred_path)))
+    with torch.no_grad():
+        ema_m1 = adapt_output(opt, ema(x_path=xm1, x_omic=omic))
+        ema_m2 = adapt_output(opt, ema(x_path=xm2, x_omic=omic))
+        if chain:
+            # the trunk pass that m2 reused: r3 = mom r2 + (1 - mom) s1,
+            # with (1 - mom) s1 = r1 - mom r0 from the main forward
+            for n, b in model.path_net.named_buffers():
+                if n.endswith("num_batches_tracked"):
+                    b.add_(1)
+                else:
+                    b.copy_(_BN_MOM * b + r1[n] - _BN_MOM * r0[n])
+        else:
+            _restore_buffers(model, r1)
+            _restore_buffers(ema, e1)
+    return (pred_kd_loss(out_m1.pred_fuse, ema_m1.pred_fuse, opt.task)
+            + pred_kd_loss(out_m2.pred_fuse, ema_m2.pred_fuse, opt.task))
+
+
 def build_teacher_train_step(opt, masking: bool = False):
     """``train_step(state, batch, crd_weight, tsvd_update=True) -> (state,
     metrics)``.
@@ -226,8 +312,13 @@ def build_teacher_train_step(opt, masking: bool = False):
     ``omic`` [B, 80], ``g`` (grade) or ``t``/``e`` (survival), and for CRD
     ``index`` [B] and ``sample_idx`` [B, 1 + nce_k] (column 0 the
     positive).  ``tsvd_update``, a host bool, says whether a
-    ``--tSVD_loss`` step refreshes the ADMM tensors."""
-    _refuse_unported(opt, masking)
+    ``--tSVD_loss`` step refreshes the ADMM tensors.  The masked step
+    (``masking=True``) takes 4 views and ``sp_mask`` [B, H, W] int32."""
+    _refuse_unported(opt)
+    if masking and opt.mode != "pathomic":
+        raise ValueError("the masked step needs --mode pathomic")
+    if masking and opt.masking_bn not in ("chain", "discard"):
+        raise ValueError(f"--masking_bn {opt.masking_bn}: chain or discard")
     if opt.CRD_gate and (opt.task != "grad" or opt.pos_mode
                          not in ("exact", "relax")):
         raise NotImplementedError(
@@ -242,8 +333,16 @@ def build_teacher_train_step(opt, masking: bool = False):
                    tsvd_update: bool = True):
         model, ema = state.model.train(), state.ema_model.train()
         dev = batch["omic"].device
-        x1 = x2 = None
-        if use_images:
+        x1 = x2 = masks = r0 = None
+        if masking:
+            views, sp_mask = augment_views_with_mask(
+                state.generator, batch["path_views"], batch["sp_mask"],
+                dtype=dtype)
+            x1, x2, xm1, xm2 = views.unbind(1)
+            masks = _saliency_masks(opt, model, x1, batch, sp_mask)
+            if opt.masking_bn == "chain":
+                r0 = _buffers(model.path_net)
+        elif use_images:
             views = augment_views(state.generator, batch["path_views"],
                                   dtype=dtype)
             x1, x2 = views[:, 0], views[:, 1]
@@ -293,6 +392,11 @@ def build_teacher_train_step(opt, masking: bool = False):
 
         if opt.orth_loss and opt.mode == "pathomic":
             loss = loss + orth_loss(out.path_feat, out.omic_feat)
+
+        if masking:
+            metrics["loss_masking"] = _masking_loss(
+                opt, model, ema, batch, out, x1, xm1, xm2, masks, r0)
+            loss = loss + metrics["loss_masking"]
 
         if _use_tsvd(opt):
             metrics.update(_tsvd_loss(opt, state.banks["tsvd"], out, ema_out,

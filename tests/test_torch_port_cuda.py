@@ -483,3 +483,154 @@ def test_tsvd_teacher_step_launches_b1_twice(cuda):
     assert got == {"B1": 4, "B2": 0, "B3": 0, "B4": 0, "B5": 0}
     assert float(metrics["loss_tsvd"]) > 0
     assert abs(float(state.banks["tsvd"].mu) - 0.55) < 1e-6
+
+
+def _masked_batch(dev, b=4, size=64, n_sp=16):
+    """Four uint8 views and a label map of 16 vertical stripes."""
+    g = torch.Generator().manual_seed(4)
+    stripes = (torch.arange(size) * n_sp // size).expand(b, size, size)
+    batch = {"omic": torch.randn(b, 80, generator=g),
+             "g": torch.randint(0, 3, (b,), generator=g),
+             "index": torch.arange(b),
+             "path_views": torch.randint(0, 256, (b, 4, size, size, 3),
+                                         dtype=torch.uint8, generator=g),
+             "sp_mask": stripes.to(torch.int32).contiguous()}
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _masked_state(dev, masking_bn="chain", paired=False):
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import make_lr_schedule
+    from multimodal_learning_tpu_torch.train.steps import (
+        build_teacher_train_step, init_teacher_state)
+    opt = Options(mode="pathomic", task="grad", input_size_path=64,
+                  path_dim=16, omic_dim=16, mmhid=16, batch_size=4,
+                  pallas_fusion="train", CRD_distill=0, pred_distill=1,
+                  masking=1, num_superpixels=16, Path_K=1, Omic_K=5,
+                  masking_bn=masking_bn, paired_conv=paired,
+                  compute_dtype="bfloat16")
+    state = init_teacher_state(opt, define_model(
+        opt, generator=torch.Generator().manual_seed(0)),
+        make_lr_schedule(opt, 10), 32, device=dev)
+    return state, build_teacher_train_step(opt, masking=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masking_bn,paired,per_step", [
+    ("chain", False, dict(B1=6, B2=1, B4=1)),
+    ("discard", False, dict(B1=6, B2=1, B4=1)),
+    ("chain", True, dict(B1=6, B2=1, B4=1, B5=36))])
+def test_masked_teacher_step_launches(cuda, masking_bn, paired, per_step):
+    """The masked CLAT teacher's step (``build_teacher_train_step(masking=
+    True)``): B1 in the student's main, masked-path and masked-omic
+    forwards and the EMA's three; B2 and B4 once in the saliency pass, B3
+    never (input gradients only); with ``--paired_conv`` B5 36 times (20
+    forwards, 16 data gradients)."""
+    state, step = _masked_state(cuda, masking_bn, paired)
+    batch = _masked_batch(cuda)
+    start = _launches()
+    for _ in range(2):
+        state, metrics = step(state, batch, 0.1)
+    torch.cuda.synchronize()
+    got = {k: v - start[k] for k, v in _launches().items()}
+    assert got == {k: 2 * per_step.get(k, 0) for k in got}
+    for k, v in metrics.items():
+        assert torch.isfinite(v).all(), k
+    assert float(metrics["loss_masking"]) > 0
+
+
+_PLAIN = ((kron_fusion, "kron_matmul_plain"),
+          (kron_fusion, "kron_matmul_dropout_plain"),
+          (kron_fusion, "kron_bwd_dw_plain"),
+          (kron_fusion, "kron_bwd_dvec_plain"),
+          (paired_conv, "conv3x3_plain"))
+
+
+@pytest.mark.cuda
+def test_masked_and_clat_steps_reach_the_kernels_not_their_plain_versions(
+        cuda, monkeypatch):
+    """On CUDA tensors the wrappers launch their kernels: a paired masked
+    step and a paired CLAT student step call no plain version."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import (make_lr_schedule,
+                                                     student, student_clat)
+    calls = {}
+    for mod, name in _PLAIN:
+        orig = getattr(mod, name)
+
+        def counted(*a, _orig=orig, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _orig(*a, **kw)
+
+        monkeypatch.setattr(mod, name, counted)
+    start = _launches()
+    state, step = _masked_state(cuda, paired=True)
+    step(state, _masked_batch(cuda), 0.1)
+    opt = Options(mode="pathomic", task="grad", input_size_path=64,
+                  path_dim=16, omic_dim=16, mmhid=16, feat_dim=16,
+                  batch_size=4, n_data=32, pallas_fusion="train",
+                  distill="crd", num_teachers=2, assign_weights=True,
+                  loss_weighting="GK_refine", use_grads_thresh=True,
+                  pos_mode="exact", pos_extra="neighbors", nce_p=3,
+                  nce_k=13, compute_dtype="bfloat16", paired_conv=True)
+    teacher = student.freeze_teacher(state.model, cuda)
+    sstate = student.init_student_state(
+        opt, define_model(opt, path_only=True,
+                          generator=torch.Generator().manual_seed(1)),
+        make_lr_schedule(opt, 10), 32, device=cuda)
+    cmask = torch.nn.functional.one_hot(torch.arange(32) % 3, 3).t().to(cuda)
+    student_clat.build_clat_student_step(opt, teacher, cmask)(
+        sstate, _small_batch(cuda), True)
+    torch.cuda.synchronize()
+    assert calls == {}
+    got = {k: v - start[k] for k, v in _launches().items()}
+    assert got == {"B1": 7, "B2": 1, "B3": 0, "B4": 1, "B5": 36 + 16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("teacher_bn,pos_extra,paired,per_step", [
+    ("batch", "neighbors", False, dict(B1=1)),
+    ("running", "centers", False, dict(B2=1)),
+    ("batch", "neighbors", True, dict(B1=1, B5=16))])
+def test_clat_student_step_launches(cuda, teacher_bn, pos_extra, paired,
+                                    per_step):
+    """The CLAT student step (``train/student_clat.py``, GK_refine, CRD v10
+    from two teachers): the frozen teacher's fusion launches B1 once per
+    step (``--teacher_bn batch``) or B2 once (``running``), B3 and B4
+    never; with ``--paired_conv`` B5 16 times.  The teacher's buffers
+    stay bitwise unchanged."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import (make_lr_schedule,
+                                                     student, student_clat)
+    opt = Options(mode="pathomic", task="grad", input_size_path=64,
+                  path_dim=16, omic_dim=16, mmhid=16, feat_dim=16,
+                  batch_size=4, n_data=32, pallas_fusion="train",
+                  distill="crd", num_teachers=2, assign_weights=True,
+                  loss_weighting="GK_refine", use_grads_thresh=True,
+                  pos_mode="exact", pos_extra=pos_extra, nce_p=3, nce_k=13,
+                  compute_dtype="bfloat16", teacher_bn=teacher_bn,
+                  paired_conv=paired)
+    teacher = student.freeze_teacher(define_model(
+        opt, generator=torch.Generator().manual_seed(0)), cuda)
+    before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    state = student.init_student_state(
+        opt, define_model(opt, path_only=True,
+                          generator=torch.Generator().manual_seed(1)),
+        make_lr_schedule(opt, 10), 32, device=cuda)
+    cmask = torch.nn.functional.one_hot(torch.arange(32) % 3, 3).t().to(cuda)
+    step = student_clat.build_clat_student_step(opt, teacher, cmask)
+    batch = _small_batch(cuda)
+    start = _launches()
+    for reweight_on in (False, True):
+        state, metrics = step(state, batch, reweight_on)
+    torch.cuda.synchronize()
+    got = {k: v - start[k] for k, v in _launches().items()}
+    assert got == {k: 2 * per_step.get(k, 0) for k in got}
+    for k, v in metrics.items():
+        assert torch.isfinite(v).all(), k
+    assert float(metrics["w1_mean"]) >= 1.0
+    for k, v in teacher.state_dict().items():
+        assert torch.equal(v, before[k]), k

@@ -199,6 +199,7 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.ops.paired_conv",
     "multimodal_learning_tpu_torch.masking",
     "multimodal_learning_tpu_torch.masking.superpixel",
+    "multimodal_learning_tpu_torch.masking.slic",
     "multimodal_learning_tpu_torch.utils",
     "multimodal_learning_tpu_torch.utils.checkpoint",
     "multimodal_learning_tpu_torch.utils.logging",
@@ -212,6 +213,8 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.cli.test_cv_MT",
     "multimodal_learning_tpu_torch.cli.train_cv_path_multi_MT",
     "multimodal_learning_tpu_torch.cli.test_cv_path",
+    "multimodal_learning_tpu_torch.cli.train_cv_MT_SP_Masking",
+    "multimodal_learning_tpu_torch.cli.train_cv_path_CLAT",
     "multimodal_learning_tpu_torch.data",
     "multimodal_learning_tpu_torch.data.augment",
     "multimodal_learning_tpu_torch.data.splits",
@@ -221,12 +224,14 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.eval",
     "multimodal_learning_tpu_torch.eval.metrics",
     "multimodal_learning_tpu_torch.eval.analysis",
+    "multimodal_learning_tpu_torch.eval.diagnostics",
     "multimodal_learning_tpu_torch.losses",
     "multimodal_learning_tpu_torch.losses.task",
     "multimodal_learning_tpu_torch.losses.kd",
     "multimodal_learning_tpu_torch.losses.orth",
     "multimodal_learning_tpu_torch.contrast",
     "multimodal_learning_tpu_torch.contrast.crd",
+    "multimodal_learning_tpu_torch.contrast.crd_v10",
     "multimodal_learning_tpu_torch.train",
     "multimodal_learning_tpu_torch.train.state",
     "multimodal_learning_tpu_torch.train.ema",
@@ -236,6 +241,7 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.train.import_state",
     "multimodal_learning_tpu_torch.train.loop",
     "multimodal_learning_tpu_torch.train.student",
+    "multimodal_learning_tpu_torch.train.student_clat",
     "multimodal_learning_tpu_torch.gradweight",
     "multimodal_learning_tpu_torch.gradweight.aekd",
     "multimodal_learning_tpu_torch.lowrank",

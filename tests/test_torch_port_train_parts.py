@@ -362,8 +362,12 @@ def test_train_entry_points_refuse_what_is_not_ported():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_teacher_state(opt, define_model(opt), make_lr_schedule(
                 opt, 10), 16)
-    with pytest.raises(NotImplementedError, match="A13"):
-        build_teacher_train_step(opt, masking=True)
+    # the masked step (ported) needs both modalities and a known BN mode
+    with pytest.raises(ValueError, match="pathomic"):
+        build_teacher_train_step(opt.replace(mode="path"), masking=True)
+    with pytest.raises(ValueError, match="masking_bn"):
+        build_teacher_train_step(opt.replace(masking_bn="keep"),
+                                 masking=True)
     for kw, item in ((dict(supcon_distill=1), "A15"),
                      (dict(fusion_type="mmdynamics"), "A17")):
         with pytest.raises(NotImplementedError, match=item):
