@@ -116,10 +116,31 @@ Phases, each of which raises on failure (nothing is caught):
     (``--start_epoch 1``, 2 epochs: the second masked, on the loader's
     SLIC maps), ``cli.train_cv_path_CLAT`` (1 epoch) and
     ``cli.test_cv_path``, which must reproduce the student's final eval
-    exactly; launches checked per step and per eval forward.
+    exactly; launches checked per step and per eval forward;
+23. drives the student's step of each distiller-zoo mode and of HKD
+    (``--distill feats_KL|rkd|pkt|hint|correlation|hkd`` on the phase 14
+    flags) on phase 7's teacher: one window of 5 steps each, B1 once per
+    step and no other kernel, finite losses and gradients, 0 host syncs;
+    host ms, kernel ms and busy share; HKD's first step must move the
+    bank's batch rows to norm 1 and leave every other row bitwise;
+24. the student's step under ``--loss_weighting SVM --svm_norm True``
+    (CRD from two teachers with the CE gradient: five losses): one window
+    of 5 steps, B1 once per step, exactly one host sync per step, in
+    ``gradweight/svm.py``, weights summing to 1; and the host solve's time;
+25. the flagship teacher step of phase 7 with ``--supcon_distill 1``: one
+    window of 5 steps, B1 twice per step, 0 host syncs, ``loss_supcon``
+    finite and positive;
+26. cross-checks one fp32 ``rkd`` student step (batch 4) and one ``hkd``
+    step (batch 10, so that the k = 8 graphs are not complete) on the card
+    against the CPU at phase 16's tolerances; the two kNN adjacencies must
+    be equal;
+27. drives ``cli.train_cv_path_multi_MT --distill hkd`` (the
+    ``dscd_student`` flags but for the mode, 1 epoch) on phase 17's
+    teacher and ``cli.test_cv_path``, which must reproduce the student's
+    final eval exactly.
 
-Every phase that counts host synchronisations (7, 11, 14, 15, 19, 21)
-fails if one comes from the augmentation.
+Every phase that counts host synchronisations (7, 11, 14, 15, 19, 21,
+23, 24, 25) fails if one comes from the augmentation.
 
 Phase 3 also holds B5 against its plain version (TF32 off), in bf16 and
 fp32, at the stage-1 shape, ragged ones, one with many tiles per block, one
@@ -1036,6 +1057,9 @@ DSCD_FLAGS = dict(distill="crd", num_teachers=2, assign_weights=True,
                   pos_mode="multi_pos", nce_p=300, nce_p2=20, nce_k=1024,
                   nce_k2=1024, alpha=1.0, beta=0.02, reg_type="none",
                   beta1=0.9, kd_T=1.0)
+# the flags of phase 17's and 27's CLI chains: one synthetic fold, paired
+MIA_CHAIN = dict(PAPER, paired_conv=True, synthetic_data=True,
+                 synthetic_folds=1)
 
 
 def _counters():
@@ -1102,38 +1126,17 @@ def _student_batch(opt, gen, dev):
     return {k: v.to(dev) for k, v in batch.items()}
 
 
-def _student_path(card, gen, dev, teacher_sd, teacher_bn="batch",
-                  paired=False, n_windows=4, per_window=5, n_warm=3,
-                  n_prof=3):
-    """Phase 14: the MICCAI student's step at full width through the entry
-    points a user calls: ``freeze_teacher`` on phase 7's trained teacher,
-    ``init_student_state`` from seed 2019, ``build_student_train_step`` on
-    a device-resident batch.  Per step: B1 once with ``--teacher_bn
-    batch``, B2 once with ``running``, B3 and B4 never, B5 16 times with
-    ``--paired_conv`` (4 forwards each of the student, the EMA and the
-    teacher, 4 data gradients of the student) and never otherwise; finite
-    losses and AEKD scale; the teacher's buffers bitwise unchanged."""
-    from multimodal_learning_tpu_torch.config import Options
-    from multimodal_learning_tpu_torch.models import define_model
-    from multimodal_learning_tpu_torch.train import make_lr_schedule
-    from multimodal_learning_tpu_torch.train import student
-
-    opt = Options(**STUDENT_CONFIG, teacher_bn=teacher_bn,
-                  paired_conv=paired)
-    teacher = define_model(opt, generator=torch.Generator())
-    teacher.load_state_dict(teacher_sd)
-    teacher = student.freeze_teacher(teacher, dev)
-    before = {k: v.clone() for k, v in teacher.state_dict().items()}
-    state = student.init_student_state(
-        opt, define_model(opt, path_only=True,
-                          generator=torch.Generator().manual_seed(SEED)),
-        make_lr_schedule(opt, steps_per_epoch=50), opt.n_data, seed=SEED)
-    batch = _student_batch(opt, gen, dev)
-    step = student.build_student_train_step(opt, teacher)
-
-    def fn():
-        return step(state, batch, 0.1)
-
+def _step_window(card, label, state, fn, per_step, n_warm=2, n_windows=1,
+                 per_window=5, n_prof=3, kernels=(
+                     ("B1 (kron_gemm_kernel + kron_reduce_kernel)",
+                      "kron_"),)):
+    """``n_windows`` windows of ``per_window`` steps of ``fn`` after
+    ``n_warm``: host ms per step (the median window); the launches, which
+    must be ``per_step`` times the steps (absent kernels: 0); finite
+    metrics and, after the last window, finite gradients of every
+    parameter that has one; then a profiled window (kernel ms, busy share,
+    each of ``kernels``' share) and the host synchronisations per step.
+    Returns those numbers and the windows' metrics."""
     for _ in range(n_warm):
         fn()
     torch.cuda.synchronize()
@@ -1143,12 +1146,7 @@ def _student_path(card, gen, dev, teacher_sd, teacher_bn="batch",
     host_ms, windows, history = _windows(fn, n_windows, per_window)
     launches = {name: c.launches for name, c in counters.items()}
     n = n_windows * per_window
-    want = {"kron_train_fwd": n if teacher_bn == "batch" else 0,
-            "kron_fwd": n if teacher_bn == "running" else 0,
-            "kron_bwd_dw": 0, "kron_bwd_dvec": 0,
-            "conv3x3": 16 * n if paired else 0}
-    label = (f"student step (teacher_bn {teacher_bn}"
-             + (", paired_conv)" if paired else ")"))
+    want = {name: n * per_step.get(name, 0) for name in counters}
     print(f"{label}: {n} steps, launches {launches} ({card})")
     if launches != want:
         raise RuntimeError(f"{label} launched {launches}, expected {want}")
@@ -1156,37 +1154,90 @@ def _student_path(card, gen, dev, teacher_sd, teacher_bn="batch",
         for k, v in metrics.items():
             if not torch.isfinite(v).all():
                 raise RuntimeError(f"{label}: metric {k} is not finite")
-    for k, v in teacher.state_dict().items():
-        if not torch.equal(v, before[k]):
-            raise RuntimeError(f"{label}: the frozen teacher's {k} changed")
+    named = [*state.model.named_parameters(),
+             *state.embeds.named_parameters()]
+    if not any(p.grad is not None for _, p in named):
+        raise RuntimeError(f"{label}: no parameter has a gradient")
+    bad = [n for n, p in named
+           if p.grad is not None and not torch.isfinite(p.grad).all()]
+    if bad:
+        raise RuntimeError(f"{label}: gradients not finite: {bad}")
     print(f"{label} metrics, last step:", {
         k: [round(x, 5) for x in v.flatten().tolist()] if v.numel() > 1
         else round(float(v), 5) for k, v in history[-1].items()},
           f"({card})")
-    print(f"timing {label}: host {host_ms:.3f} ms per step of "
-          f"{opt.batch_size} (median of {n_windows} windows of "
-          f"{per_window}: {', '.join(f'{w:.3f}' for w in windows)}), bf16, "
-          f"512^2, nce_p {opt.nce_p} -> {opt.nce_p2}, nce_k {opt.nce_k} -> "
-          f"{opt.nce_k2}, device-resident batch ({card})")
-    kron = "B1" if teacher_bn == "batch" else "B2"
-    prof = _profile_steps(fn, card, n_prof, label=label, kernels=(
-        ("B5 (conv3x3)", "conv3x3"),
-        (f"{kron} (kron_gemm_kernel + kron_reduce_kernel)", "kron_")))
+    print(f"timing {label}: host {host_ms:.3f} ms per step of 16 (median of "
+          f"{n_windows} windows of {per_window}: "
+          f"{', '.join(f'{w:.3f}' for w in windows)}), bf16, 512^2, "
+          f"device-resident batch ({card})")
+    prof = _profile_steps(fn, card, n_prof, label=label, kernels=kernels)
     syncs, where = _count_syncs(fn, 3)
     print(f"{label}: {syncs:g} host synchronisations per step {where} "
           f"({card})")
     return {"host_ms": host_ms, "launches": launches, "syncs": syncs,
-            **prof}
+            "where": where, "history": history, **prof}
 
 
-def _tsvd_path(card, gen, dev, n_windows=4, per_window=5, n_warm=3,
-               n_prof=3):
+def _frozen_student(opt, teacher_sd, dev):
+    """The student's set-up through the entry points a user calls:
+    ``freeze_teacher`` on a teacher with ``teacher_sd``,
+    ``init_student_state`` from seed 2019 and ``build_student_train_step``.
+    Returns the state, the step and the frozen teacher."""
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import make_lr_schedule
+    from multimodal_learning_tpu_torch.train import student
+
+    teacher = define_model(opt, generator=torch.Generator())
+    teacher.load_state_dict(teacher_sd)
+    teacher = student.freeze_teacher(teacher, dev)
+    state = student.init_student_state(
+        opt, define_model(opt, path_only=True,
+                          generator=torch.Generator().manual_seed(SEED)),
+        make_lr_schedule(opt, steps_per_epoch=50), opt.n_data, seed=SEED)
+    return state, student.build_student_train_step(opt, teacher), teacher
+
+
+def _student_path(card, gen, dev, teacher_sd, teacher_bn="batch",
+                  paired=False):
+    """Phase 14: the MICCAI student's step at full width on phase 7's
+    trained teacher (:func:`_frozen_student`), on a device-resident batch:
+    4 windows of 5 steps.  Per step: B1 once with ``--teacher_bn batch``,
+    B2 once with ``running``, B3 and B4 never, B5 16 times with
+    ``--paired_conv`` (4 forwards each of the student, the EMA and the
+    teacher, 4 data gradients of the student) and never otherwise; finite
+    losses, AEKD scale and gradients; the teacher's buffers bitwise
+    unchanged."""
+    from multimodal_learning_tpu_torch.config import Options
+
+    opt = Options(**STUDENT_CONFIG, teacher_bn=teacher_bn,
+                  paired_conv=paired)
+    state, step, teacher = _frozen_student(opt, teacher_sd, dev)
+    before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    batch = _student_batch(opt, gen, dev)
+    label = (f"student step (teacher_bn {teacher_bn}"
+             + (", paired_conv)" if paired else ")"))
+    kron = "B1" if teacher_bn == "batch" else "B2"
+    r = _step_window(
+        card, label, state, lambda: step(state, batch, 0.1),
+        {"kron_train_fwd" if teacher_bn == "batch" else "kron_fwd": 1,
+         "conv3x3": 16 if paired else 0}, n_warm=3, n_windows=4,
+        kernels=(("B5 (conv3x3)", "conv3x3"),
+                 (f"{kron} (kron_gemm_kernel + kron_reduce_kernel)",
+                  "kron_")))
+    for k, v in teacher.state_dict().items():
+        if not torch.equal(v, before[k]):
+            raise RuntimeError(f"{label}: the frozen teacher's {k} changed")
+    return r
+
+
+def _tsvd_path(card, gen, dev):
     """Phase 15: the M3LR t-SVD teacher's step at full width
     (``tsvd_teacher``: n_views 4, Lambda_global 0.1, mu 1e-5, pho 1.1,
     max_mu 1, aux_iter 1) through ``init_teacher_state`` and
     ``build_teacher_train_step``, the refresh flag a host bool per step as
-    the fold loop computes it.  B1 twice per step, the others never;
-    ``loss_tsvd`` and both TNNs finite; mu grown by pho per refresh."""
+    the fold loop computes it: 4 windows of 5 steps.  B1 twice per step,
+    the others never; ``loss_tsvd`` and both TNNs finite; mu grown by pho
+    per refresh."""
     from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.models import define_model
     from multimodal_learning_tpu_torch.train import make_lr_schedule
@@ -1207,54 +1258,32 @@ def _tsvd_path(card, gen, dev, n_windows=4, per_window=5, n_warm=3,
         done["refreshes"] += int(refresh)
         return step(state, batch, 0.1, tsvd_update=refresh)
 
-    for _ in range(n_warm):
-        fn()
-    torch.cuda.synchronize()
-    counters = _counters()
-    for c in counters.values():
-        c.launches = 0
-    host_ms, windows, history = _windows(fn, n_windows, per_window)
-    launches = {name: c.launches for name, c in counters.items()}
-    n = n_windows * per_window
-    print(f"t-SVD teacher step: {n} steps, launches {launches} ({card})")
-    if launches != {"kron_train_fwd": 2 * n, "kron_fwd": 0, "kron_bwd_dw": 0,
-                    "kron_bwd_dvec": 0, "conv3x3": 0}:
-        raise RuntimeError(f"the t-SVD teacher step launched {launches}; "
-                           "B1 runs twice per step (student and EMA)")
-    for metrics in history:
-        for k in ("loss", "loss_tsvd", "tnn_path", "tnn_omic"):
-            if not torch.isfinite(metrics[k]).all():
-                raise RuntimeError(f"t-SVD teacher step: {k} is not finite")
+    r = _step_window(card, "t-SVD teacher step", state, fn,
+                     {"kron_train_fwd": 2}, n_warm=3, n_windows=4)
     mu = float(state.banks["tsvd"].mu)
     want_mu = min(opt.mu * opt.pho ** done["refreshes"], opt.max_mu)
     if abs(mu - want_mu) > 1e-5 * want_mu:
         raise RuntimeError(f"mu is {mu} after {done['refreshes']} refreshes;"
                            f" expected {want_mu}")
-    print("t-SVD teacher step metrics, last step:", {
-        k: float(v) for k, v in history[-1].items() if v.numel() == 1},
-          f"mu {mu:.6e} after {done['refreshes']} refreshes ({card})")
-    print(f"timing t-SVD teacher step: host {host_ms:.3f} ms per step of "
-          f"{opt.batch_size} (median of {n_windows} windows of {per_window}:"
-          f" {', '.join(f'{w:.3f}' for w in windows)}), bf16, 512^2, "
-          f"n_views {opt.n_views}, a refresh every step ({card})")
-    prof = _profile_steps(fn, card, n_prof, label="t-SVD teacher step")
-    syncs, where = _count_syncs(fn, 3)
-    print(f"t-SVD teacher step: {syncs:g} host synchronisations per step "
-          f"{where} ({card})")
-    return {"host_ms": host_ms, "launches": launches, "syncs": syncs,
-            **prof}
+    print(f"t-SVD teacher step: mu {mu:.6e} after {done['refreshes']} "
+          f"refreshes ({card})")
+    return r
 
 
-def _student_cross_check(card, gen, teacher_sd, batch_size=4):
-    """Phase 16: one fp32 student step (the phase 14 flags, dropout 0) on
-    the card (kernel path, TF32 off) against the CPU (plain path, oneDNN
-    off), from the same state, views and ``mid`` ranks, at phase 9's
-    tolerances: the loss parts, the AEKD scale and both banks with their Z
-    at rtol 2e-3 / atol 5e-4; Adam's first moment of the heads (the CRD
-    embeds, ``fc_new1`` but its bias, which feeds a train-mode BatchNorm,
+def _student_cross_check(card, gen, teacher_sd, batch_size=4, **flags):
+    """Phase 16 (and 26, with ``flags``): one fp32 student step (the phase
+    14 flags, dropout 0) on the card (kernel path, TF32 off) against the
+    CPU (plain path, oneDNN off), from the same state, views and, for CRD,
+    ``mid`` ranks, at phase 9's tolerances: the loss parts, the AEKD scale
+    and the banks (CRD's with their Z, HKD's) at rtol 2e-3 / atol 5e-4;
+    Adam's first moment of the heads (the CRD or HKD embeds and encoders,
+    ``fc_new1`` but its bias, which feeds a train-mode BatchNorm,
     ``fc_new2``) at rtol 2e-3 and an atol of 2e-3 of each tensor's largest
-    element, the trunk's by the norm of the difference at 2e-2."""
+    element, the trunk's by the norm of the difference at 2e-2.  Under
+    ``--distill hkd`` the kNN adjacencies the two steps build must be
+    equal."""
     import copy
+    import dataclasses
 
     from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.contrast import draw_pick
@@ -1262,19 +1291,27 @@ def _student_cross_check(card, gen, teacher_sd, batch_size=4):
     from multimodal_learning_tpu_torch.train import make_lr_schedule
     from multimodal_learning_tpu_torch.train import student
 
-    opt = Options(**{**STUDENT_CONFIG, "compute_dtype": "float32",
+    opt = Options(**{**STUDENT_CONFIG, **flags, "compute_dtype": "float32",
                      "dropout_rate": 0.0, "batch_size": batch_size})
+    label = f"fp32 {opt.distill} student step card vs cpu"
     model = define_model(opt, path_only=True,
                          generator=torch.Generator().manual_seed(SEED))
     teacher = define_model(opt, generator=torch.Generator())
     teacher.load_state_dict(teacher_sd)
-    batch = _student_batch(opt, gen, "cpu")
+    batch = _zoo_batch(opt, gen, "cpu")
     views = (torch.rand(batch_size, 2, opt.input_size_path,
                         opt.input_size_path, 3, generator=gen) * 2 - 1)
-    picks = {name: draw_pick("mid", opt.nce_p, opt.nce_p2, gen)
-             for name in ("fuse", "ema")}
-    augment = student.augment_views
+    picks = ({name: draw_pick("mid", opt.nce_p, opt.nce_p2, gen)
+              for name in ("fuse", "ema")} if opt.distill == "crd" else {})
+    augment, knn = student.augment_views, student.knn_adjacency
+    graphs = []
+
+    def recorded_knn(logits):
+        graphs.append(knn(logits))
+        return graphs[-1]
+
     student.augment_views = lambda g, v, dtype: views.to(v.device, dtype)
+    student.knn_adjacency = recorded_knn
     results = {}
     try:
         for where in ("cuda", "cpu"):
@@ -1297,11 +1334,11 @@ def _student_cross_check(card, gen, teacher_sd, batch_size=4):
             results[where] = (
                 {k: v.cpu() for k, v in metrics.items()},
                 {n: adam[p]["exp_avg"].cpu() for n, p in named.items()},
-                {f"{name}.{k}": getattr(bank, k).cpu()
+                {f"{name}.{k}": v.cpu()
                  for name, bank in state.banks.items()
-                 for k in ("memory_v1", "memory_v2", "z_v1", "z_v2")})
+                 for k, v in dataclasses.asdict(bank).items()})
     finally:
-        student.augment_views = augment
+        student.augment_views, student.knn_adjacency = augment, knn
     (m_gpu, mu_gpu, b_gpu), (m_cpu, mu_cpu, b_cpu) = (results["cuda"],
                                                       results["cpu"])
     for k in m_cpu:
@@ -1310,6 +1347,15 @@ def _student_cross_check(card, gen, teacher_sd, batch_size=4):
     for k in b_cpu:
         torch.testing.assert_close(b_gpu[k], b_cpu[k], rtol=2e-3, atol=5e-4,
                                    msg=f"bank {k}")
+    if opt.distill == "hkd":
+        # the student's graph and the teacher's, on each device
+        gpu, cpu = graphs[:2], graphs[2:]
+        if len(cpu) != 2 or any(not torch.equal(a.cpu(), b)
+                                for a, b in zip(gpu, cpu)):
+            raise AssertionError(f"{label}: the kNN adjacencies differ")
+        print(f"{label}: both kNN adjacencies equal, "
+              f"{[int(a.sum()) for a in cpu]} edges on {batch_size} nodes "
+              f"({card})")
     worst_el, worst_norm = 0.0, 0.0
     for n, want in mu_cpu.items():
         diff = mu_gpu[n] - want
@@ -1327,96 +1373,245 @@ def _student_cross_check(card, gen, teacher_sd, batch_size=4):
                                    msg=f"student exp_avg {n}")
         worst_el = max(worst_el, (diff.abs().max()
                                   / want.abs().max().clamp_min(1e-30)).item())
-    print("fp32 student step card vs cpu, loss parts:", {
+    print(f"{label}, loss parts:", {
         k: f"{float(m_gpu[k]):.6f}/{float(m_cpu[k]):.6f}" for k in m_cpu
         if m_cpu[k].numel() == 1}, "scale", m_gpu["scale"].tolist(), "/",
           m_cpu["scale"].tolist(), f"({card})")
-    print(f"fp32 student step card vs cpu: banks and Z agree; exp_avg heads "
-          f"worst max|diff| / max|cpu| = {worst_el:.3e}, trunk worst |diff| "
-          f"/ |cpu| = {worst_norm:.3e} (batch {batch_size}, 512^2; {card})")
+    print(f"{label}: banks agree; exp_avg heads worst max|diff| / max|cpu| "
+          f"= {worst_el:.3e}, trunk worst |diff| / |cpu| = "
+          f"{worst_norm:.3e} (batch {batch_size}, 512^2; {card})")
 
 
-def _mia_chain(card, n_train=64, n_test=32, teacher_epochs=2):
-    """Phase 17: the MIA-2022 chain through the CLIs as a user runs them,
-    on one synthetic fold at full width with ``--paired_conv True``:
-    ``cli.train_cv_MT --tSVD_loss True`` (the ``tsvd_teacher`` flags, 2
-    epochs), ``cli.train_cv_path_multi_MT`` (the ``dscd_student`` flags,
-    ``--fixed_model`` that teacher, 1 epoch, so that the best checkpoint is
-    the final one) and ``cli.test_cv_path``, which must reproduce the
-    student's final eval exactly.  Launches are checked per step and per
-    eval forward.  Returns each driver's launches."""
+def _run_cli(main, cfg, root, want, what, card):
+    """One CLI driver on ``cfg`` (flags as a dict) under ``root``; its
+    launches must equal ``want`` (absent kernels: 0).  Returns its result
+    and its launches."""
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    flags = [a for k, v in cfg.items() for a in (f"--{k}", str(v))]
+    t0 = time.perf_counter()
+    res = main(flags + ["--checkpoints_dir", root])
+    torch.cuda.synchronize()
+    got = {name: c.launches for name, c in counters.items()}
+    print(f"{what} in {time.perf_counter() - t0:.2f} s, launches {got} "
+          f"({card})")
+    want = {name: want.get(name, 0) for name in counters}
+    if got != want:
+        raise RuntimeError(f"{what} launched {got}, expected {want}")
+    return res, got
+
+
+def _student_chain(card, root, flags, label, steps, fwd):
+    """``cli.train_cv_path_multi_MT`` on ``flags`` (1 epoch, so that the
+    best checkpoint is the final one) and ``cli.test_cv_path``, which must
+    reproduce the student's final eval exactly.  Returns each driver's
+    launches."""
     from multimodal_learning_tpu_torch.cli import (test_cv_path,
-                                                   train_cv_MT,
                                                    train_cv_path_multi_MT)
     from multimodal_learning_tpu_torch.eval import load_pred_test
     from multimodal_learning_tpu_torch.eval.metrics import (
         extended_grading_metrics, one_hot)
 
-    bs = PAPER["batch_size"]
-    steps, fwd = n_train // bs, -(-n_test // bs)
-    counters = _counters()
-    common = {**PAPER, "paired_conv": True, "synthetic_data": True,
-              "synthetic_folds": 1}
-    teacher = {**TSVD_CONFIG, **common, "niter_decay": teacher_epochs,
-               "model_name": "smoke_m3lr"}
-    teacher.pop("n_data")
-    student_flags = {**common, **DSCD_FLAGS, "niter_decay": 1,
-                     "fixed_model": "smoke_m3lr", "model_name": "smoke_dscd"}
-    out = {}
-
-    def run(main, cfg, root, want, what):
-        for c in counters.values():
-            c.launches = 0
-        flags = [a for k, v in cfg.items() for a in (f"--{k}", str(v))]
-        t0 = time.perf_counter()
-        res = main(flags + ["--checkpoints_dir", root])
-        torch.cuda.synchronize()
-        got = {name: c.launches for name, c in counters.items()}
-        print(f"MIA-2022 chain: {what} in {time.perf_counter() - t0:.2f} s, "
-              f"launches {got} ({card})")
-        want = {name: want.get(name, 0) for name in counters}
-        if got != want:
-            raise RuntimeError(f"{what} launched {got}, expected {want}")
-        out[what.split(" ")[0]] = got
-        return res
-
-    with tempfile.TemporaryDirectory() as root:
-        e = teacher_epochs
-        run(train_cv_MT.main, teacher, root,
-            {"conv3x3": 12 * e * steps + 4 * e * fwd,
-             "kron_train_fwd": 2 * e * steps, "kron_fwd": e * fwd},
-            f"train_cv_MT --tSVD_loss True ({e * steps} steps, {e} evals of "
-            f"{n_test} ROIs)")
-        final = run(train_cv_path_multi_MT.main, student_flags, root,
-                    {"conv3x3": 16 * steps + 4 * fwd,
-                     "kron_train_fwd": steps},
-                    f"train_cv_path_multi_MT ({steps} steps, 1 eval of "
-                    f"{n_test} ROIs)")[1]
-        ext = run(test_cv_path.main, {**student_flags, "niter_decay": 1},
-                  root, {"conv3x3": 4 * fwd}, "test_cv_path")
-        ckpt_dir = os.path.join(root, "grad_15", "smoke_dscd")
-        with open(os.path.join(ckpt_dir, "metrics.jsonl")) as fh:
-            for line in fh:
-                rec = json.loads(line)
-                print(f"MIA-2022 chain: student epoch {rec['epoch']:g} "
-                      f"{rec['samples_per_s']:.1f} patches/s through the "
-                      f"loader and prefetcher, loss {rec['train_loss']:.5f} "
-                      f"({card})")
-        dumped = load_pred_test(os.path.join(ckpt_dir,
-                                             "smoke_dscd_1_pred_test.pkl"))
+    name = flags["model_name"]
+    res, train_launches = _run_cli(
+        train_cv_path_multi_MT.main, flags, root,
+        {"conv3x3": 16 * steps + 4 * fwd, "kron_train_fwd": steps},
+        f"{label}: train_cv_path_multi_MT ({steps} steps, 1 eval of "
+        f"{fwd} batches)", card)
+    final = res[1]
+    ext, test_launches = _run_cli(test_cv_path.main, flags, root,
+                                  {"conv3x3": 4 * fwd},
+                                  f"{label}: test_cv_path", card)
+    ckpt_dir = os.path.join(root, "grad_15", name)
+    with open(os.path.join(ckpt_dir, "metrics.jsonl")) as fh:
+        for line in fh:
+            rec = json.loads(line)
+            print(f"{label}: student epoch {rec['epoch']:g} "
+                  f"{rec['samples_per_s']:.1f} patches/s through the loader "
+                  f"and prefetcher, loss {rec['train_loss']:.5f} ({card})")
+    dumped = load_pred_test(os.path.join(ckpt_dir, f"{name}_1_pred_test.pkl"))
     if not np.array_equal(dumped["probs"]["path"], final["probs"]["path"]):
-        raise RuntimeError("test_cv_path's probabilities differ from the "
-                           "student's training-time final eval")
+        raise RuntimeError(f"{label}: test_cv_path's probabilities differ "
+                           "from the student's training-time final eval")
     if not np.isfinite(final["probs"]["path"]).all():
-        raise RuntimeError("the student's probabilities are not finite")
+        raise RuntimeError(f"{label}: the student's probabilities are not "
+                           "finite")
     want = extended_grading_metrics(one_hot(final["gt"], 3),
                                     final["probs"]["path"])
     if ext != [want]:
-        raise RuntimeError(f"test_cv_path's metrics {ext} differ from the "
-                           f"final eval's {want}")
-    print("MIA-2022 chain: test_cv_path reproduces the student's final eval "
+        raise RuntimeError(f"{label}: test_cv_path's metrics {ext} differ "
+                           f"from the final eval's {want}")
+    print(f"{label}: test_cv_path reproduces the student's final eval "
           "exactly;", {k: round(v, 5) for k, v in want.items()}, f"({card})")
+    return {"train_cv_path_multi_MT": train_launches,
+            "test_cv_path": test_launches}
+
+
+def _mia_chain(card, root, n_train=64, n_test=32, teacher_epochs=2):
+    """Phase 17: the MIA-2022 chain through the CLIs as a user runs them,
+    on one synthetic fold at full width with ``--paired_conv True``, under
+    ``root``: ``cli.train_cv_MT --tSVD_loss True`` (the ``tsvd_teacher``
+    flags, 2 epochs), ``cli.train_cv_path_multi_MT`` (the ``dscd_student``
+    flags, ``--fixed_model`` that teacher, 1 epoch) and ``cli.test_cv_path``
+    (:func:`_student_chain`).  Launches are checked per step and per eval
+    forward.  Returns each driver's launches."""
+    from multimodal_learning_tpu_torch.cli import train_cv_MT
+
+    bs = PAPER["batch_size"]
+    steps, fwd = n_train // bs, -(-n_test // bs)
+    teacher = {**TSVD_CONFIG, **MIA_CHAIN, "niter_decay": teacher_epochs,
+               "model_name": "smoke_m3lr"}
+    teacher.pop("n_data")
+    e = teacher_epochs
+    _, out = _run_cli(
+        train_cv_MT.main, teacher, root,
+        {"conv3x3": 12 * e * steps + 4 * e * fwd,
+         "kron_train_fwd": 2 * e * steps, "kron_fwd": e * fwd},
+        f"MIA-2022 chain: train_cv_MT --tSVD_loss True ({e * steps} steps, "
+        f"{e} evals of {n_test} ROIs)", card)
+    return {"train_cv_MT": out, **_student_chain(
+        card, root, {**MIA_CHAIN, **DSCD_FLAGS, "niter_decay": 1,
+                     "fixed_model": "smoke_m3lr",
+                     "model_name": "smoke_dscd"},
+        "MIA-2022 chain", steps, fwd)}
+
+
+# The distiller-zoo baselines and HKD of the MIA-2022 students (ROADMAP
+# A15), each in place of CRD on the ``miccai_student`` flags of phase 14.
+ZOO_MODES = ("feats_KL", "rkd", "pkt", "hint", "correlation", "hkd")
+
+
+def _zoo_batch(opt, gen, dev):
+    """Phase 14's batch; under ``--distill hkd`` its ``sample_idx`` holds
+    ``nce_k`` negatives only, as the HKD loader draws them."""
+    batch = _student_batch(opt, gen, dev)
+    if opt.distill == "hkd":
+        batch["sample_idx"] = torch.randint(
+            0, opt.n_data, (opt.batch_size, opt.nce_k), generator=gen).to(dev)
+    return batch
+
+
+def _zoo_paths(card, gen, dev, teacher_sd):
+    """Phase 23: the student's step of each distiller-zoo mode and of HKD
+    (``--distill feats_KL|rkd|pkt|hint|correlation|hkd`` on the phase 14
+    flags), on phase 7's teacher: one window of 5 steps each, B1 once per
+    step (the frozen teacher) and no other kernel, 0 host syncs.  HKD's
+    first step must move the bank's batch rows, to norm 1, and no other
+    row."""
+    from multimodal_learning_tpu_torch.config import Options
+
+    out = {}
+    for mode in ZOO_MODES:
+        opt = Options(**{**STUDENT_CONFIG, "distill": mode})
+        state, step, _ = _frozen_student(opt, teacher_sd, dev)
+        batch = _zoo_batch(opt, gen, dev)
+
+        def fn():
+            return step(state, batch, 0.1)
+
+        if mode == "hkd":
+            bank = state.banks["hkd"]
+            before = [bank.memory_l.clone(), bank.memory_ab.clone()]
+            fn()
+            rows = torch.zeros(opt.n_data, dtype=torch.bool, device=dev)
+            rows[batch["index"]] = True
+            for old, new in zip(before, (bank.memory_l, bank.memory_ab)):
+                norms = new[rows].norm(dim=1)
+                if (not torch.equal(old[~rows], new[~rows])
+                        or (old[rows] == new[rows]).all(dim=1).any()
+                        or (norms - 1).abs().max() > 1e-5):
+                    raise RuntimeError("HKD bank: a batch row did not move "
+                                       "to norm 1, or another row moved")
+            print(f"HKD bank: the {int(rows.sum())} batch rows of both "
+                  f"sides moved to norm 1 (max |norm - 1| "
+                  f"{float((norms - 1).abs().max()):.2e}), the other "
+                  f"{int((~rows).sum())} rows bitwise unchanged ({card})")
+        r = _step_window(card, f"{mode} student step", state, fn,
+                         {"kron_train_fwd": 1})
+        if r["syncs"] != 0:
+            raise RuntimeError(f"the {mode} student step synchronises the "
+                               f"host: {r['where']}")
+        out[mode] = r
+        del state, step
     return out
+
+
+def _svm_path(card, gen, dev, teacher_sd):
+    """Phase 24: the student's step under ``--loss_weighting SVM
+    --svm_norm True`` (CRD from two teachers, AEKD inputs with the CE
+    gradient: five losses), on phase 7's teacher: one window of 5 steps, B1
+    once per step, exactly one host sync per step, in
+    ``gradweight/svm.py`` (the gradients' copy to the host), finite weights
+    summing to 1; and the host solve's time on such a stack."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.gradweight import find_optimal_svm
+
+    opt = Options(**{**STUDENT_CONFIG, "loss_weighting": "SVM",
+                     "svm_norm": True})
+    state, step, _ = _frozen_student(opt, teacher_sd, dev)
+    batch = _student_batch(opt, gen, dev)
+    r = _step_window(card, "SVM-weighted student step", state,
+                     lambda: step(state, batch, 0.1),
+                     {"kron_train_fwd": 1})
+    if r["syncs"] != 1 or not all("gradweight/svm.py" in k
+                                  for k in r["where"]):
+        raise RuntimeError("the SVM-weighted step must synchronise once, in "
+                           f"gradweight/svm.py: {r['where']}")
+    for metrics in r["history"]:
+        scale = metrics["scale"].double()
+        if abs(float(scale.sum()) - 1.0) > 1e-5 or (scale < 0).any():
+            raise RuntimeError(f"SVM weights {scale.tolist()} do not sum "
+                               "to 1")
+    stack = torch.randn(5, opt.batch_size, opt.path_dim, generator=gen)
+    find_optimal_svm(stack.numpy(), nu=0.5, is_norm=True)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        find_optimal_svm(stack.numpy(), nu=0.5, is_norm=True)
+    r["solve_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+    print(f"timing SVM solve on the host: {r['solve_ms']:.3f} ms per "
+          f"[5, {opt.batch_size}, {opt.path_dim}] stack (243 active sets; "
+          f"{card})")
+    return r
+
+
+def _supcon_path(card, gen, dev):
+    """Phase 25: the flagship teacher step of phase 7 with
+    ``--supcon_distill 1``: one window of 5 steps, B1 twice per step, 0
+    host syncs, ``loss_supcon`` finite and positive."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import make_lr_schedule
+    from multimodal_learning_tpu_torch.train.steps import (
+        build_teacher_train_step, init_teacher_state)
+
+    opt = _train_opt(Options, supcon_distill=1)
+    state = init_teacher_state(
+        opt, define_model(opt, generator=torch.Generator().manual_seed(SEED)),
+        make_lr_schedule(opt, steps_per_epoch=50), opt.n_data, seed=SEED)
+    batch = _train_batch(opt, gen, dev)
+    step = build_teacher_train_step(opt)
+    r = _step_window(card, "SupCon teacher step", state,
+                     lambda: step(state, batch, 0.1), {"kron_train_fwd": 2})
+    if r["syncs"] != 0:
+        raise RuntimeError(f"the SupCon teacher step synchronises the host: "
+                           f"{r['where']}")
+    if not all(float(m["loss_supcon"]) > 0 for m in r["history"]):
+        raise RuntimeError("loss_supcon is not positive")
+    return r
+
+
+def _hkd_chain(card, root, n_train=64, n_test=32):
+    """Phase 27: ``cli.train_cv_path_multi_MT --distill hkd`` (the
+    ``dscd_student`` flags but for the mode, 1 epoch) on phase 17's teacher
+    under ``root``, then ``cli.test_cv_path``, which must reproduce the
+    student's final eval exactly (:func:`_student_chain`)."""
+    bs = PAPER["batch_size"]
+    return _student_chain(
+        card, root, {**MIA_CHAIN, **DSCD_FLAGS, "distill": "hkd",
+                     "niter_decay": 1, "fixed_model": "smoke_m3lr",
+                     "model_name": "smoke_hkd"},
+        "HKD chain", n_train // bs, -(-n_test // bs))
 
 
 # The MIA-2023 CLAT flow (``recipes/baseline.py`` of the JAX package): the
@@ -2159,9 +2354,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 16. one fp32 student step, card against CPU
     _student_cross_check(card, gen, teacher_sd)
-    # 17. the MIA-2022 chain through the CLIs
+    # 17. the MIA-2022 chain through the CLIs; its teacher serves phase 27
     stamp(17)
-    chain = _mia_chain(card)
+    mia_root = tempfile.TemporaryDirectory()
+    chain = _mia_chain(card, mia_root.name)
     torch.cuda.empty_cache()
     # 18. SLIC on this machine
     stamp(18)
@@ -2215,6 +2411,34 @@ def main() -> int:
     print(f"B4 per masked step: 1 launch, {b4_step:.5f} ms of "
           f"{masked['chain', False].get('kernel_ms', float('nan')):.3f} ms "
           f"of kernels ({card})")
+    # 23. the distiller-zoo and HKD student steps on phase 7's teacher
+    stamp(23)
+    zoo = _zoo_paths(card, gen, dev, teacher_sd)
+    torch.cuda.empty_cache()
+    # 24. the one-class-SVM weighting
+    stamp(24)
+    svm = _svm_path(card, gen, dev, teacher_sd)
+    torch.cuda.empty_cache()
+    # 25. the flagship teacher step with SupCon
+    stamp(25)
+    supcon = _supcon_path(card, gen, dev)
+    torch.cuda.empty_cache()
+    # 26. fp32 rkd and hkd student steps, card against CPU; HKD at a batch
+    # of 10, so that its k = 8 graphs are not complete
+    stamp(26)
+    _student_cross_check(card, gen, teacher_sd, distill="rkd")
+    _student_cross_check(card, gen, teacher_sd, batch_size=10, distill="hkd")
+    # 27. HKD through the CLIs on phase 17's teacher
+    stamp(27)
+    hkd_chain = _hkd_chain(card, mia_root.name)
+    mia_root.cleanup()
+    print("A15 steps per step (bf16, 512^2, batch 16): " + "; ".join(
+        f"{name}: host {r['host_ms']:.3f} ms, kernels "
+        f"{r.get('kernel_ms', float('nan')):.3f} ms, busy "
+        f"{100 * r.get('busy', float('nan')):.1f}%, {r['syncs']:g} syncs"
+        for name, r in [*((f"{m} student", zoo[m]) for m in ZOO_MODES),
+                        ("SVM-weighted student", svm),
+                        ("SupCon teacher", supcon)]) + f" ({card})")
     print("MIA-2022 steps per step (bf16, 512^2, batch 16): " + "; ".join(
         f"{name}: host {r['host_ms']:.3f} ms, kernels "
         f"{r.get('kernel_ms', float('nan')):.3f} ms, busy "
@@ -2243,6 +2467,14 @@ def main() -> int:
                 tsvd["launches"]["kron_train_fwd"],
             "MIA-2022 CLI chain": chain["train_cv_MT"]["kron_train_fwd"]
             + chain["train_cv_path_multi_MT"]["kron_train_fwd"],
+            "zoo and HKD student steps (6 modes x 5 steps)": sum(
+                r["launches"]["kron_train_fwd"] for r in zoo.values()),
+            "SVM-weighted student step (5 steps)":
+                svm["launches"]["kron_train_fwd"],
+            "SupCon teacher step (5 steps)":
+                supcon["launches"]["kron_train_fwd"],
+            "HKD CLI chain": hkd_chain["train_cv_path_multi_MT"][
+                "kron_train_fwd"],
             "masked teacher step (20 steps)":
                 masked["chain", False]["launches"]["kron_train_fwd"],
             "CLAT student step, teacher_bn batch (20 steps)":
@@ -2262,6 +2494,7 @@ def main() -> int:
             "student step, paired_conv (20 steps)":
                 students["batch", True]["launches"]["conv3x3"],
             "MIA-2022 CLI chain": sum(c["conv3x3"] for c in chain.values()),
+            "HKD CLI chain": sum(c["conv3x3"] for c in hkd_chain.values()),
             "masked teacher step, paired_conv (20 steps)":
                 masked["chain", True]["launches"]["conv3x3"],
             "CLAT student step, paired_conv (5 steps)":
@@ -2335,7 +2568,7 @@ def main() -> int:
         "fp32_max_abs_err": conv_errs[torch.float32]})
     for k in kernels:
         k["launched_by"] = launched_by[k["name"]]
-    print(f"[chip_smoke] phases 1-22 in {time.perf_counter() - t_run:.1f} s "
+    print(f"[chip_smoke] phases 1-27 in {time.perf_counter() - t_run:.1f} s "
           f"({card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

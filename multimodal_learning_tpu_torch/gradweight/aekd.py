@@ -22,8 +22,7 @@ The weights are detached, as the reference reads ``grad.data``.
 - ``gk_refine_thresh_weights``: per-sample thresholded gradient cosines
   (stage-2 ``GK_refine_thresh``, ``:81-128``)
 
-The one-class-SVM weighting (``gradweight/svm.py``) needs scikit-learn and
-is not ported (ROADMAP A15).
+The one-class-SVM weighting is ``gradweight/svm.py``.
 """
 from __future__ import annotations
 

@@ -17,7 +17,10 @@ so the bridge works on that state as nested numpy trees in one plain dict
 The student's state has the same layout (``train/student.py``): the
 path-only ResNet under ``params["model"]``, the single-Linear CRD heads
 ``crd_{fuse,ema}_{s,t}``, the banks ``"fuse"`` and ``"ema"`` (each with
-its Z) and, under momentum AEKD, ``"aekd_ema"`` (an array); its frozen
+its Z), or under ``--distill hkd`` the heads ``hkd_embed_{s,t}``
+(``{"fc1"}``) and ``hkd_gnn_{s,t}`` (``{"w0", "w1"}``) and the bank
+``"hkd"`` (``{"memory_l", "memory_ab"}``), and, under momentum AEKD,
+``"aekd_ema"`` (an array); its frozen
 teacher's ``{"params", "batch_stats"}`` travels on its own, through
 ``models/import_flax.py``.
 
@@ -35,6 +38,7 @@ import torch
 from torch import nn
 
 from ..contrast.crd import CRDBank
+from ..contrast.hkd import HKDBank
 from ..models.import_flax import flax_from_state_dict, state_dict_from_flax
 from .state import TrainState, TsvdAux
 
@@ -115,7 +119,7 @@ def load_jax_state(state: TrainState, tree) -> TrainState:
         if not isinstance(bank, dict):
             state.banks[name] = tensor(bank)
             continue
-        kind = TsvdAux if name == "tsvd" else CRDBank
+        kind = {"tsvd": TsvdAux, "hkd": HKDBank}.get(name, CRDBank)
         state.banks[name] = kind(**{k: tensor(v) for k, v in bank.items()})
     return state
 

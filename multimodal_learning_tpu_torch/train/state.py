@@ -2,10 +2,10 @@
 
 Port of ``multimodal_learning_tpu/train/state.py``.  Where the JAX state is
 an immutable pytree that each step replaces, the port's holds modules and
-tensors that the step updates in place: the student model, the CRD
-projection heads beside it, the optimizer, the EMA model (its own
+tensors that the step updates in place: the student model, the CRD or
+HKD heads beside it, the optimizer, the EMA model (its own
 parameters and BatchNorm buffers, distinct from the student's), the CRD
-banks, and the generator that draws the step's augmentation factors and
+or HKD banks, and the generator that draws the step's augmentation factors and
 Kronecker dropout masks.  ``banks`` also carries, under the JAX
 package's names, the t-SVD teacher's ADMM state (``"tsvd"``,
 :class:`TsvdAux`) and the student's momentum-AEKD scale (``"aekd_ema"``,
@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ..contrast.crd import CRDBank
+from ..contrast.hkd import HKDBank
 from .optim import ScheduledOptimizer
 
 
@@ -42,11 +43,11 @@ class TsvdAux:
 class TrainState:
     step: int                      # the EMA warm-up counter (host int)
     model: nn.Module
-    embeds: nn.ModuleDict          # "crd_fuse_s"/"crd_fuse_t", or empty
+    embeds: nn.ModuleDict          # CRD or HKD heads, or empty
     optimizer: ScheduledOptimizer
     ema_model: nn.Module
     generator: torch.Generator     # on the state's device
-    banks: Dict[str, Union[CRDBank, TsvdAux, torch.Tensor]] = field(
+    banks: Dict[str, Union[CRDBank, HKDBank, TsvdAux, torch.Tensor]] = field(
         default_factory=dict)
     teacher_generator: Optional[torch.Generator] = None
 

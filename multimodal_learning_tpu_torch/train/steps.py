@@ -32,8 +32,11 @@ reference's sequence of forwards would (the trunk's pass that the reuse
 skips is replayed in closed form), ``discard`` keeps only the main and
 EMA forwards' updates.
 
-Not ported yet, and refused: SupCon distillation (ROADMAP A15) and the
-mmdynamics fusion (A17).
+``--supcon_distill 1`` adds SupCon (``losses/supcon.py``) over the
+L2-normalised branch features of the student and the EMA as two views,
+with the class labels (``task grad`` only), times ``supcon_weight``.
+
+Not ported yet, and refused: the mmdynamics fusion (ROADMAP A17).
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ from ..contrast.crd import (Embed, contrast_loss, crd_gate_weights,
 from ..data.augment import (augment_view, augment_views,
                             augment_views_with_mask)
 from ..losses import (cox_loss, l1_regularizer, nll_loss, orth_loss,
-                      pred_kd_loss, sp_loss)
+                      pred_kd_loss, sp_loss, supcon_loss)
 from ..lowrank import build_view_features, update_adj_tensor, update_aux
 from ..masking.superpixel import frozen_params, superpixel_attention_mask
 from ..models.factory import _dtype
@@ -137,12 +140,9 @@ def _use_tsvd(opt) -> bool:
 
 
 def _refuse_unported(opt) -> None:
-    for cond, what in (
-            (opt.supcon_distill == 1, "--supcon_distill: ROADMAP A15"),
-            (opt.mode == "pathomic" and opt.fusion_type == "mmdynamics",
-             "--fusion_type mmdynamics: ROADMAP A17")):
-        if cond:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if opt.mode == "pathomic" and opt.fusion_type == "mmdynamics":
+        raise NotImplementedError(
+            "--fusion_type mmdynamics: ROADMAP A17 is not ported yet")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -319,6 +319,10 @@ def build_teacher_train_step(opt, masking: bool = False):
         raise ValueError("the masked step needs --mode pathomic")
     if masking and opt.masking_bn not in ("chain", "discard"):
         raise ValueError(f"--masking_bn {opt.masking_bn}: chain or discard")
+    if opt.supcon_distill == 1 and opt.task != "grad":
+        raise NotImplementedError(
+            "--supcon_distill needs class labels (task=grad); the flag is "
+            "parsed-but-dead in the reference (MICCAI-2022/options.py:98)")
     if opt.CRD_gate and (opt.task != "grad" or opt.pos_mode
                          not in ("exact", "relax")):
         raise NotImplementedError(
@@ -392,6 +396,18 @@ def build_teacher_train_step(opt, masking: bool = False):
 
         if opt.orth_loss and opt.mode == "pathomic":
             loss = loss + orth_loss(out.path_feat, out.omic_feat)
+
+        if opt.supcon_distill == 1:
+            # live semantics for a flag the reference parses but never
+            # uses (options.py:98-99), as the JAX step gives it
+            views = torch.stack([
+                f / torch.linalg.vector_norm(f, dim=1, keepdim=True
+                                             ).clamp_min(1e-12)
+                for f in (_branch_feat(opt, out), _branch_feat(opt, ema_out))
+            ], dim=1)
+            metrics["loss_supcon"] = opt.supcon_weight * supcon_loss(
+                views, labels=batch["g"])
+            loss = loss + metrics["loss_supcon"]
 
         if masking:
             metrics["loss_masking"] = _masking_loss(

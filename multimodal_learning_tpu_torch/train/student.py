@@ -10,22 +10,35 @@ Port of ``multimodal_learning_tpu/train/student.py`` (reference
   on view 1 (:func:`frozen_teacher_forward`);
 - ``loss_cls`` (NLL or Cox); ``loss_div1/2``, DistillKL from the fused
   teacher and the EMA; ``loss_kd1/2``, CRD v2/v3/v4 from the two teachers,
-  each with its own heads and bank (or SP for ``--distill similarity``);
-- with ``--assign_weights``: each KD loss's gradient at the student
-  feature, taken through the heads only (``gradweight.feature_grads``),
-  weighs the KD losses: the cosine-Gram ``GK_refine``, ``momentum_AEKD``,
-  the v2 gate (``--student_customize``, per sample with ``--sample_KD``),
-  or ``GK_refine_param`` over the trunk's parameter gradients;
+  each with its own heads and bank; or ``loss_kd1``, one distiller-zoo
+  loss of the student feature against the fused teacher feature
+  (``--distill similarity|sp|feats_KL|rkd|pkt|hint|correlation``,
+  ``losses/distiller_zoo.py``, unscaled by ``beta`` as in JAX), or HKD
+  (``--distill hkd``, ``contrast/hkd.py``: two InfoNCE pairs against its
+  bank, the second over TAGConv-smoothed embeddings on kNN graphs of the
+  student's and the teacher's logits);
+- with ``--assign_weights`` and ``--distill crd|kd``: each KD loss's
+  gradient at the student feature, taken through the heads only
+  (``gradweight.feature_grads``), weighs the KD losses: the cosine-Gram
+  ``GK_refine``, ``momentum_AEKD``, the v2 gate (``--student_customize``,
+  per sample with ``--sample_KD``), ``GK_refine_param`` over the trunk's
+  parameter gradients, or the one-class SVM (``SVM``,
+  ``gradweight/svm.py``: one copy of the gradients to the host per step,
+  the step's one host synchronisation);
 - backward, Adam, EMA; then each CRD bank takes the Z of the raw P+K
   columns (if it has none yet) and the batch's rows, from the features of
-  the forward, as the JAX student does after its optimizer step.
+  the forward, as the JAX student does after its optimizer step; the HKD
+  bank takes the batch's rows from the forward's embeddings likewise.
 
 The KD losses read the student's logits as ``path_feat @ fc_new2`` in
 float32, as the JAX student recomputes them, whatever the encoder dtype.
 
-Refused, naming their ROADMAP items: the distiller-zoo modes, HKD and the
-SVM weighting (A15), ``--pretrained_path`` (A18), ``--data_parallel``
-above 1 (A19), and the ``--init_type`` values the teacher refuses (A2).
+Refused: the ``--distill`` values the JAX student wires no loss for
+(``attention``, ``vid``, ``kdsvd``, ``fsp``, ``abound``, ``factor``,
+``nst``; JAX trains them silently as plain ``kd``: a documented deviation
+in ROADMAP's ground rules), and, naming their ROADMAP items,
+``--pretrained_path`` (A18), ``--data_parallel`` above 1 (A19) and the
+``--init_type`` values the teacher refuses (A2).
 """
 from __future__ import annotations
 
@@ -42,12 +55,17 @@ from torch.nn import functional as F
 
 from ..contrast.crd import (Embed, bank_update, contrast_loss,
                             crd_scores_select, draw_pick, init_bank, set_z)
+from ..contrast.hkd import (TAGEncoder, hkd_bank_update, hkd_graph_scores,
+                            hkd_scores, init_hkd_bank, knn_adjacency,
+                            nce_softmax_loss)
 from ..data.augment import augment_views
 from ..data.pipeline import Loader, PathomicDataset, PrefetchLoader
 from ..gradweight import (aekd_scale, aekd_total, aekd_v2_gate,
                           feature_grads, gk_refine_param_space,
-                          momentum_aekd_scale)
-from ..losses import cox_loss, distill_kl, l1_regularizer, nll_loss, sp_loss
+                          momentum_aekd_scale, svm_weights)
+from ..losses import (correlation_loss, cox_loss, distill_kl, feats_kl,
+                      hint_loss, l1_regularizer, nll_loss, pkt_loss, rkd_loss,
+                      sp_loss)
 from ..models.common import apply_act
 from ..models.factory import _dtype, define_model
 from ..models.fusion import _KronEncoder1
@@ -63,18 +81,23 @@ from .schedules import PlateauTracker, make_lr_schedule
 from .state import TrainState
 from .steps import build_eval_step, resolve_device
 
-DISTILL_MODES = ("kd", "crd", "similarity", "sp")
-WEIGHTINGS = ("GK_refine", "momentum_AEKD", "GK_refine_param")
+# the distiller-zoo losses of ``kd1``: the student feature against the
+# fused teacher feature (JAX ``train/student.py:219-230``)
+ZOO = {"feats_KL": feats_kl, "similarity": sp_loss, "sp": sp_loss,
+       "rkd": rkd_loss, "pkt": pkt_loss, "hint": hint_loss,
+       "correlation": correlation_loss}
+DISTILL_MODES = ("kd", "crd", *ZOO, "hkd")
+WEIGHTINGS = ("GK_refine", "momentum_AEKD", "SVM", "GK_refine_param")
 
 
 def _refuse_unported(opt) -> None:
+    if opt.distill not in DISTILL_MODES:
+        raise NotImplementedError(
+            f"--distill {opt.distill}: the JAX student wires no loss for it "
+            "and trains it as plain kd (its KL terms only); the port "
+            f"accepts {DISTILL_MODES} (a documented deviation, ROADMAP "
+            "ground rules)")
     for cond, what in (
-            (opt.distill not in DISTILL_MODES,
-             f"--distill {opt.distill} (the distiller zoo and HKD): "
-             "ROADMAP A15"),
-            (opt.assign_weights and opt.loss_weighting == "SVM",
-             "--loss_weighting SVM (the one-class-SVM weighting needs "
-             "scikit-learn): ROADMAP A15"),
             (bool(getattr(opt, "pretrained_path", "")),
              "--pretrained_path: ROADMAP A18"),
             (opt.data_parallel > 1, "--data_parallel > 1: ROADMAP A19"),
@@ -90,7 +113,10 @@ def init_student_state(opt, model: nn.Module, lr_schedule, n_data: int,
     """The student's state on ``device`` (CUDA when None): the path-only
     ResNet, with ``--distill crd`` the single-Linear CRD heads
     ``crd_{fuse,ema}_{s,t}`` (``CRD_loss.py:256-267``) and two banks drawn
-    on the CPU from ``seed``, under momentum AEKD a NaN ("unseeded") scale,
+    on the CPU from ``seed``, with ``--distill hkd`` the single-Linear heads
+    ``hkd_embed_{s,t}``, the TAGConv encoders ``hkd_gnn_{s,t}``
+    (``GNN.py:121-134``) and the bank ``"hkd"``, in the JAX package's
+    order, under momentum AEKD a NaN ("unseeded") scale,
     Adam, the EMA model, the step's device generator (``seed``) and the
     frozen teacher's (``seed + 1``)."""
     _refuse_unported(opt)
@@ -105,6 +131,15 @@ def init_student_state(opt, model: nn.Module, lr_schedule, n_data: int,
             embeds[f"crd_{name}_t"] = Embed(width, opt.feat_dim, mlp=False,
                                             generator=gen)
             banks[name] = init_bank(n_data, opt.feat_dim, gen, dev)
+    elif opt.distill == "hkd":
+        embeds["hkd_embed_s"] = Embed(opt.path_dim, opt.feat_dim, mlp=False,
+                                      generator=gen)
+        embeds["hkd_embed_t"] = Embed(opt.mmhid, opt.feat_dim, mlp=False,
+                                      generator=gen)
+        for side in ("hkd_gnn_s", "hkd_gnn_t"):
+            embeds[side] = TAGEncoder(opt.feat_dim, opt.feat_dim,
+                                      generator=gen)
+        banks["hkd"] = init_hkd_bank(n_data, opt.feat_dim, gen, dev)
     if opt.assign_weights and opt.loss_weighting == "momentum_AEKD":
         n_losses = (4 if opt.distill == "crd" else 2) + int(opt.CE_grads)
         banks["aekd_ema"] = torch.full((n_losses,), float("nan"), device=dev)
@@ -211,16 +246,30 @@ def _crd_teachers(opt) -> Tuple[str, ...]:
     return ("fuse",) if opt.which_teacher == "fuse" else ("ema",)
 
 
+def _hkd_loss(state: TrainState, f_es, f_et, logit, t_logit, batch
+              ) -> torch.Tensor:
+    """HKD (``GNN.py:136-196``): InfoNCE of the embeddings against the
+    bank, then of their TAGConv smoothings over the kNN graphs of the
+    student's logits (taking no gradient) and of the teacher's."""
+    bank, y, cidx = state.banks["hkd"], batch["index"], batch["sample_idx"]
+    loss = sum(map(nce_softmax_loss, hkd_scores(bank, f_es, f_et, y, cidx)))
+    f_gs = state.embeds["hkd_gnn_s"](knn_adjacency(logit), f_es)
+    f_gt = state.embeds["hkd_gnn_t"](knn_adjacency(t_logit), f_et)
+    return loss + sum(map(nce_softmax_loss,
+                          hkd_graph_scores(bank, f_gs, f_gt, y, cidx)))
+
+
 def build_student_train_step(opt, teacher: nn.Module):
     """``step(state, batch, epoch_frac, picks=None) -> (state, metrics)``.
 
     ``teacher`` is the frozen multimodal model (:func:`freeze_teacher`).
     ``batch`` holds device tensors: ``path_views`` uint8 [B, 2, H, W, 3],
     ``omic``, ``g`` (or ``t``/``e``), and for CRD ``index`` [B] and
-    ``sample_idx`` [B, P + K].  ``epoch_frac`` (a host float) drives the
-    curriculum selection; ``picks`` ({"fuse"|"ema": ranks}) replaces the
-    positive ranks the step would draw from ``state.generator``.  Metrics
-    keep the JAX names and stay on the device."""
+    ``sample_idx`` [B, P + K] (for HKD [B, K], negatives only).
+    ``epoch_frac`` (a host float) drives the curriculum selection;
+    ``picks`` ({"fuse"|"ema": ranks}) replaces the positive ranks the step
+    would draw from ``state.generator``.  Metrics keep the JAX names and
+    stay on the device."""
     _check_student_flags(opt)
     dtype = _dtype(opt)
     crd_names = _crd_teachers(opt)
@@ -257,6 +306,9 @@ def build_student_train_step(opt, teacher: nn.Module):
         emb = {name: (state.embeds[f"crd_{name}_s"](path_feat),
                       state.embeds[f"crd_{name}_t"](t_feats[name]))
                for name in crd_names}
+        if opt.distill == "hkd":
+            f_es = state.embeds["hkd_embed_s"](path_feat)
+            f_et = state.embeds["hkd_embed_t"](t_out.fuse_feat)
 
         def kd_losses(per_sample: bool = False) -> Dict[str, torch.Tensor]:
             losses = {}
@@ -267,8 +319,11 @@ def build_student_train_step(opt, teacher: nn.Module):
             for i, t_logit in enumerate(div_teachers, 1):
                 losses[f"div{i}"] = alpha * distill_kl(
                     logit, t_logit, opt.kd_T, per_sample=per_sample)
-            if opt.distill in ("similarity", "sp"):
-                losses["kd1"] = sp_loss(path_feat, t_out.fuse_feat)
+            if opt.distill in ZOO:
+                losses["kd1"] = ZOO[opt.distill](path_feat, t_out.fuse_feat)
+            elif opt.distill == "hkd":
+                losses["kd1"] = _hkd_loss(state, f_es, f_et, logit,
+                                          t_out.hazard_fuse, batch)
             for i, name in enumerate(crd_names, 1):
                 f_s, f_t = emb[name]
                 out_s, out_t, _ = crd_scores_select(
@@ -309,6 +364,11 @@ def build_student_train_step(opt, teacher: nn.Module):
                 else:
                     loss_kd = aekd_v2_gate(grads[:-1], grads[-1], kd_vals)
                 scale = torch.zeros(len(grads), device=logit.device)
+            elif opt.loss_weighting == "SVM":
+                # the reference's commented alternative (..._v2.py:156-158,
+                # CL_utils/optimization.py:16-57), solved on the host
+                scale = svm_weights(grads, nu=0.5, is_norm=opt.svm_norm)
+                loss_kd = aekd_total(scale, kd_vals)
             elif opt.loss_weighting == "GK_refine_param":
                 params = [p for n, p in model.named_parameters()
                           if "fc_new2" not in n]
@@ -358,6 +418,9 @@ def build_student_train_step(opt, teacher: nn.Module):
                                              bank.memory_v1[idx], f_t)
                                 / opt.nce_t))
                 bank_update(bank, f_s, f_t, batch["index"], opt.nce_m)
+            if opt.distill == "hkd":
+                hkd_bank_update(state.banks["hkd"], f_es, f_et,
+                                batch["index"])
 
         metrics = {"loss": loss, "loss_cls": loss_cls, "loss_KD": loss_kd,
                    "scale": scale}
@@ -395,7 +458,7 @@ def train_student(opt, data: Dict, fold: int,
     dev = resolve_device(device)
     split = data["cv_splits"][fold]
     train_ds = PathomicDataset(opt, split, "train", train=True,
-                               contrast=opt.distill == "crd")
+                               contrast=opt.distill in ("crd", "hkd"))
     loaders = [Loader(train_ds, opt.batch_size, shuffle=True, drop_last=True,
                       n_views=2, workers=opt.host_workers,
                       seed=opt.seed + fold),

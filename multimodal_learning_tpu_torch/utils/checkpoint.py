@@ -15,8 +15,8 @@ importing jax or loading half a checkpoint.
 Mid-fold snapshots for ``--resume``/``--snapshot_every``
 (``save_train_state``/``load_train_state``) are the port's own format, a
 ``torch.save`` of the whole train state: the model and the EMA model, the
-CRD heads, the optimizer with its update count and plateau scale, the
-banks (CRD, t-SVD, the momentum-AEKD scale), the device generators'
+CRD or HKD heads, the optimizer with its update count and plateau scale,
+the banks (CRD, HKD, t-SVD, the momentum-AEKD scale), the device generators'
 states (the step's and a student's frozen teacher's), the epoch and an
 ``extra`` dict.  The
 JAX package's snapshots (flax serialisation) and the port's do not read

@@ -634,3 +634,115 @@ def test_clat_student_step_launches(cuda, teacher_bn, pos_extra, paired,
     assert float(metrics["w1_mean"]) >= 1.0
     for k, v in teacher.state_dict().items():
         assert torch.equal(v, before[k]), k
+
+
+def _zoo_student(cuda, **flags):
+    """A small student of the distiller zoo, HKD or the SVM weighting on a
+    frozen teacher: its state, step and batch (HKD's ``sample_idx`` holds
+    the K negatives only)."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import make_lr_schedule, student
+    opt = Options(**{**dict(
+        mode="pathomic", task="grad", input_size_path=64, path_dim=16,
+        omic_dim=16, mmhid=16, feat_dim=16, batch_size=8, n_data=32,
+        pallas_fusion="train", num_teachers=2, assign_weights=True,
+        CE_grads=True, select_pos_mode="hard", pos_mode="multi_pos",
+        nce_p=6, nce_p2=3, nce_k=8, nce_k2=5, compute_dtype="bfloat16"),
+        **flags})
+    teacher = student.freeze_teacher(define_model(
+        opt, generator=torch.Generator().manual_seed(0)), cuda)
+    state = student.init_student_state(
+        opt, define_model(opt, path_only=True,
+                          generator=torch.Generator().manual_seed(1)),
+        make_lr_schedule(opt, 10), 32, device=cuda)
+    batch = _small_batch(cuda, b=8)
+    if opt.distill == "hkd":
+        batch["sample_idx"] = batch["sample_idx"][:, 6:].contiguous()
+    return state, student.build_student_train_step(opt, teacher), batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["feats_KL", "rkd", "pkt", "hint",
+                                  "correlation", "hkd"])
+def test_zoo_and_hkd_student_steps_launch_b1_once(cuda, mode):
+    """A distiller-zoo or HKD student step: the frozen teacher's fusion
+    launches B1 once per step and no other kernel runs; HKD's bank rows of
+    the batch move to norm 1."""
+    state, step, batch = _zoo_student(cuda, distill=mode)
+    start = _launches()
+    for _ in range(2):
+        state, metrics = step(state, batch, 0.1)
+    torch.cuda.synchronize()
+    got = {k: v - start[k] for k, v in _launches().items()}
+    assert got == {"B1": 2, "B2": 0, "B3": 0, "B4": 0, "B5": 0}
+    for k, v in metrics.items():
+        assert torch.isfinite(v).all(), k
+    if mode == "hkd":
+        rows = state.banks["hkd"].memory_l[batch["index"]]
+        torch.testing.assert_close(rows.norm(dim=1),
+                                   torch.ones(8, device=cuda))
+
+
+def _syncs(fn):
+    """Host synchronisations of ``fn`` by file, as torch.cuda's sync debug
+    mode reports them."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [w.filename for w in rec
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+@pytest.mark.cuda
+def test_svm_student_step_syncs_once_in_the_solver(cuda):
+    """``--loss_weighting SVM``: B1 once per step, and one host
+    synchronisation per step, the gradients' copy in ``gradweight/svm.py``;
+    the weights sum to 1 under ``--svm_norm``."""
+    state, step, batch = _zoo_student(cuda, distill="crd",
+                                      loss_weighting="SVM", svm_norm=True)
+    step(state, batch, 0.1)
+    start = _launches()
+    where = _syncs(lambda: step(state, batch, 0.1))
+    got = {k: v - start[k] for k, v in _launches().items()}
+    assert got == {"B1": 1, "B2": 0, "B3": 0, "B4": 0, "B5": 0}
+    assert len(where) == 1 and where[0].endswith(
+        "gradweight/svm.py"), where
+    _, metrics = step(state, batch, 0.1)
+    torch.testing.assert_close(metrics["scale"].sum().cpu(),
+                               torch.tensor(1.0))
+
+
+@pytest.mark.cuda
+def test_supcon_teacher_step_launches_b1_twice_without_syncs(cuda):
+    """``--supcon_distill 1`` in the teacher step: B1 in the student and the
+    EMA forward, no host synchronisation, a finite positive SupCon term."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import make_lr_schedule
+    from multimodal_learning_tpu_torch.train.steps import (
+        build_teacher_train_step, init_teacher_state)
+    opt = Options(mode="pathomic", task="grad", input_size_path=64,
+                  path_dim=16, omic_dim=16, mmhid=16, feat_dim=16,
+                  batch_size=4, n_data=32, pallas_fusion="train",
+                  CRD_distill=1, pred_distill=1, pos_mode="exact", nce_p=1,
+                  nce_k=13, supcon_distill=1, compute_dtype="bfloat16")
+    state = init_teacher_state(
+        opt, define_model(opt, generator=torch.Generator().manual_seed(1)),
+        make_lr_schedule(opt, 10), 32, device=cuda)
+    step = build_teacher_train_step(opt)
+    batch = _small_batch(cuda)
+    step(state, batch, 0.1)
+    start = _launches()
+    out = {}
+    where = _syncs(lambda: out.update(step(state, batch, 0.1)[1]))
+    got = {k: v - start[k] for k, v in _launches().items()}
+    assert got == {"B1": 2, "B2": 0, "B3": 0, "B4": 0, "B5": 0}
+    assert where == []
+    assert float(out["loss_supcon"]) > 0

@@ -229,9 +229,12 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.losses.task",
     "multimodal_learning_tpu_torch.losses.kd",
     "multimodal_learning_tpu_torch.losses.orth",
+    "multimodal_learning_tpu_torch.losses.distiller_zoo",
+    "multimodal_learning_tpu_torch.losses.supcon",
     "multimodal_learning_tpu_torch.contrast",
     "multimodal_learning_tpu_torch.contrast.crd",
     "multimodal_learning_tpu_torch.contrast.crd_v10",
+    "multimodal_learning_tpu_torch.contrast.hkd",
     "multimodal_learning_tpu_torch.train",
     "multimodal_learning_tpu_torch.train.state",
     "multimodal_learning_tpu_torch.train.ema",
@@ -244,6 +247,7 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.train.student_clat",
     "multimodal_learning_tpu_torch.gradweight",
     "multimodal_learning_tpu_torch.gradweight.aekd",
+    "multimodal_learning_tpu_torch.gradweight.svm",
     "multimodal_learning_tpu_torch.lowrank",
     "multimodal_learning_tpu_torch.lowrank.tsvt",
     "multimodal_learning_tpu_torch.lowrank.views",

@@ -594,10 +594,9 @@ def test_teacher_step_with_crd_gate_matches_jax(interpret_pallas,
 # --------------------------------------------------------------- refusals
 
 REFUSED = {
-    "distill_rkd": (dict(distill="rkd"), "A15"),
-    "distill_hkd": (dict(distill="hkd"), "A15"),
-    "svm_weighting": (dict(assign_weights=True, loss_weighting="SVM"),
-                      "A15"),
+    # the JAX student wires no loss for --distill vid (nor attention,
+    # kdsvd, fsp, abound, factor, nst) and trains it as plain kd
+    "distill_vid": (dict(distill="vid"), "ground rules"),
     "pretrained": (dict(pretrained_path="weights.pth"), "A18"),
     "data_parallel": (dict(data_parallel=2), "A19"),
     "init_type": (dict(init_type="xavier"), "A2"),

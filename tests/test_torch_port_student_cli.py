@@ -1,6 +1,8 @@
 """The MIA-2022 flow through the port's CLIs on the CPU: a teacher fold
 (plain, or the t-SVD teacher with ``--tSVD_loss True``), the student
-distilled from it, and the student's eval.
+distilled from it (CRD v3 with GK_refine; on the plain teacher also HKD,
+``--distill hkd``, and CRD with the one-class-SVM weighting,
+``--loss_weighting SVM``), and the student's eval.
 
 One synthetic fold at 64^2 and widths 16, ``--paired_conv True``:
 ``cli.train_cv_MT`` (2 epochs) -> ``cli.train_cv_path_multi_MT`` (the
@@ -44,6 +46,10 @@ STUDENT = COMMON + ("--niter_decay 1 --feat_dim 8 --distill crd "
                     "--nce_p2 3 --nce_k 10 --nce_k2 6 -a 1 -b 0.02 "
                     "--model_name vs --fixed_model vt --patience 0.0").split()
 TEST = COMMON + ["--model_name", "vs"]
+# case: (teacher flags, student flags beyond STUDENT)
+CHAINS = {"plain": ([], []), "tsvd": (TSVD, []),
+          "hkd": ([], ["--distill", "hkd"]),
+          "svm": ([], ["--loss_weighting", "SVM", "--svm_norm", "True"])}
 
 
 @pytest.fixture(autouse=True)
@@ -55,8 +61,8 @@ def two_threads():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("teacher", ["plain", "tsvd"])
-def test_mia_chain_through_the_clis(teacher, tmp_path, monkeypatch):
+@pytest.mark.parametrize("case", sorted(CHAINS))
+def test_mia_chain_through_the_clis(case, tmp_path, monkeypatch):
     import jax
     import jax.numpy as jnp
 
@@ -71,10 +77,10 @@ def test_mia_chain_through_the_clis(teacher, tmp_path, monkeypatch):
 
     monkeypatch.setenv("MML_PLATFORM", "cpu")
     where = ["--checkpoints_dir", str(tmp_path)]
-    teacher_res = train_cv_MT.main(
-        TEACHER + (TSVD if teacher == "tsvd" else []) + where)[1]
+    teacher_flags, student_flags = CHAINS[case]
+    teacher_res = train_cv_MT.main(TEACHER + teacher_flags + where)[1]
     assert np.isfinite(teacher_res["probs"]["fuse"]).all()
-    final = train_cv_path_multi_MT.main(STUDENT + where)[1]
+    final = train_cv_path_multi_MT.main(STUDENT + student_flags + where)[1]
     ckpt_dir = os.path.join(str(tmp_path), "grad_15", "vs")
     ext = test_cv_path.main(TEST + where)
     dumped = load_pred_test(os.path.join(ckpt_dir, "vs_1_pred_test.pkl"))
@@ -90,6 +96,9 @@ def test_mia_chain_through_the_clis(teacher, tmp_path, monkeypatch):
     # ResNet's tree, and evaluates it to the port's probabilities
     jopt = j_parse_args(TEST + where, save=False)
     ckpt = j_load(os.path.join(ckpt_dir, "vs_1_best.pt"))
+    assert (ckpt["opt"]["distill"], ckpt["opt"]["loss_weighting"]) == {
+        "hkd": ("hkd", "GK_refine"), "svm": ("crd", "SVM")}.get(
+        case, ("crd", "GK_refine"))
     variables = j_def(jopt, path_only=True).init(
         {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
         jnp.zeros((1, 64, 64, 3)), train=True)

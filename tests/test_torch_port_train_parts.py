@@ -368,8 +368,7 @@ def test_train_entry_points_refuse_what_is_not_ported():
     with pytest.raises(ValueError, match="masking_bn"):
         build_teacher_train_step(opt.replace(masking_bn="keep"),
                                  masking=True)
-    for kw, item in ((dict(supcon_distill=1), "A15"),
-                     (dict(fusion_type="mmdynamics"), "A17")):
+    for kw, item in ((dict(fusion_type="mmdynamics"), "A17"),):
         with pytest.raises(NotImplementedError, match=item):
             build_teacher_train_step(opt.replace(**kw))
         with pytest.raises(NotImplementedError, match=item):
