@@ -137,10 +137,30 @@ Phases, each of which raises on failure (nothing is caught):
 27. drives ``cli.train_cv_path_multi_MT --distill hkd`` (the
     ``dscd_student`` flags but for the mode, 1 epoch) on phase 17's
     teacher and ``cli.test_cv_path``, which must reproduce the student's
-    final eval exactly.
+    final eval exactly;
+28. drives the mmdynamics step at full width (``--fusion_type
+    mmdynamics``, pred-KD and CRD off, bf16, 512^2, batch 16) through
+    ``init_teacher_state`` and ``build_mmdynamics_train_step``, unpaired
+    and with ``--paired_conv`` (4 windows of 5 steps each): no Kronecker
+    kernel, B5 8 times per step when paired (4 forwards, 4 data
+    gradients), finite losses and gradients, 0 host syncs, the EMA
+    model's parameters and buffers bitwise unchanged;
+29. the teacher step of the ``teacher`` recipe with ``--fusion_type
+    polynomial_fusion``, ``LMF`` and ``HFB``: one window of 5 steps each,
+    no kernel of the port, 0 host syncs;
+30. cross-checks one fp32 mmdynamics step (batch 4, dropout 0) and the
+    fp32 serving forward of each new fusion type and of the mmdynamics
+    model on the card against the CPU at phase 9's and phase 5's
+    tolerances;
+31. drives the mmdynamics chain through the CLIs on one full-width
+    synthetic fold with ``--paired_conv True``: ``cli.train_cv_MT`` (2
+    epochs of 4 steps), ``cli.test_cv_MT``, which must reproduce the
+    final eval exactly, ``cli.export_model`` and ``cli.predict``, whose
+    outputs are ``{"pred_fuse"}``; then times the exported artifact's
+    serving forward per batch of 16.
 
 Every phase that counts host synchronisations (7, 11, 14, 15, 19, 21,
-23, 24, 25) fails if one comes from the augmentation.
+23, 24, 25, 28, 29) fails if one comes from the augmentation.
 
 Phase 3 also holds B5 against its plain version (TF32 off), in bf16 and
 fp32, at the stage-1 shape, ragged ones, one with many tiles per block, one
@@ -500,6 +520,16 @@ def _train_batch(opt, gen, dev):
     return {k: v.to(dev) for k, v in batch.items()}
 
 
+def _teacher_state(opt):
+    """``init_teacher_state`` from seed 2019 on the card."""
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import make_lr_schedule
+    from multimodal_learning_tpu_torch.train.steps import init_teacher_state
+    return init_teacher_state(
+        opt, define_model(opt, generator=torch.Generator().manual_seed(SEED)),
+        make_lr_schedule(opt, steps_per_epoch=50), opt.n_data, seed=SEED)
+
+
 B1_TAG = ("B1 (kron_gemm_kernel<true + kron_reduce_kernel; the step "
           "launches no other kron kernel)", "kron_")
 
@@ -555,17 +585,13 @@ def _train_path(card, gen, dev, n_steps=20, n_warm=3, n_prof=3,
     the state, the batch, the launches in the timed steps and the step as
     a function of nothing."""
     from multimodal_learning_tpu_torch.config import Options
-    from multimodal_learning_tpu_torch.models import define_model
     from multimodal_learning_tpu_torch.ops import kron_fusion as kf
     from multimodal_learning_tpu_torch.ops import paired_conv as pc
-    from multimodal_learning_tpu_torch.train import make_lr_schedule
     from multimodal_learning_tpu_torch.train.steps import (
-        build_teacher_train_step, init_teacher_state)
+        build_teacher_train_step)
 
     opt = _train_opt(Options, paired_conv=paired)
-    state = init_teacher_state(
-        opt, define_model(opt, generator=torch.Generator().manual_seed(SEED)),
-        make_lr_schedule(opt, steps_per_epoch=50), opt.n_data, seed=SEED)
+    state = _teacher_state(opt)
     batch = _train_batch(opt, gen, dev)
     train_step = build_teacher_train_step(opt)
     for _ in range(n_warm):
@@ -1239,15 +1265,11 @@ def _tsvd_path(card, gen, dev):
     the others never; ``loss_tsvd`` and both TNNs finite; mu grown by pho
     per refresh."""
     from multimodal_learning_tpu_torch.config import Options
-    from multimodal_learning_tpu_torch.models import define_model
-    from multimodal_learning_tpu_torch.train import make_lr_schedule
     from multimodal_learning_tpu_torch.train.steps import (
-        build_teacher_train_step, init_teacher_state)
+        build_teacher_train_step)
 
     opt = Options(**TSVD_CONFIG)
-    state = init_teacher_state(
-        opt, define_model(opt, generator=torch.Generator().manual_seed(SEED)),
-        make_lr_schedule(opt, steps_per_epoch=50), opt.n_data, seed=SEED)
+    state = _teacher_state(opt)
     batch = _train_batch(opt, gen, dev)
     step = build_teacher_train_step(opt)
     done = {"steps": 0, "refreshes": 0}
@@ -1580,15 +1602,11 @@ def _supcon_path(card, gen, dev):
     ``--supcon_distill 1``: one window of 5 steps, B1 twice per step, 0
     host syncs, ``loss_supcon`` finite and positive."""
     from multimodal_learning_tpu_torch.config import Options
-    from multimodal_learning_tpu_torch.models import define_model
-    from multimodal_learning_tpu_torch.train import make_lr_schedule
     from multimodal_learning_tpu_torch.train.steps import (
-        build_teacher_train_step, init_teacher_state)
+        build_teacher_train_step)
 
     opt = _train_opt(Options, supcon_distill=1)
-    state = init_teacher_state(
-        opt, define_model(opt, generator=torch.Generator().manual_seed(SEED)),
-        make_lr_schedule(opt, steps_per_epoch=50), opt.n_data, seed=SEED)
+    state = _teacher_state(opt)
     batch = _train_batch(opt, gen, dev)
     step = build_teacher_train_step(opt)
     r = _step_window(card, "SupCon teacher step", state,
@@ -1720,15 +1738,11 @@ def _masked_path(card, gen, dev, rois, labels, masking_bn="chain",
     kernel ms, busy share, B1's, B2's, B4's and B5's shares, host syncs.
     Returns those and the state."""
     from multimodal_learning_tpu_torch.config import Options
-    from multimodal_learning_tpu_torch.models import define_model
-    from multimodal_learning_tpu_torch.train import make_lr_schedule
     from multimodal_learning_tpu_torch.train.steps import (
-        build_teacher_train_step, init_teacher_state)
+        build_teacher_train_step)
 
     opt = Options(**CLAT1_CONFIG, masking_bn=masking_bn, paired_conv=paired)
-    state = init_teacher_state(
-        opt, define_model(opt, generator=torch.Generator().manual_seed(SEED)),
-        make_lr_schedule(opt, steps_per_epoch=50), opt.n_data, seed=SEED)
+    state = _teacher_state(opt)
     batch = _masked_batch(opt, gen, dev, rois, labels)
     step = build_teacher_train_step(opt, masking=True)
 
@@ -2122,6 +2136,283 @@ def _time_conv(gen, dev, card, flush):
     return out
 
 
+# The remaining models (ROADMAP A17) at the paper width: the mmdynamics
+# model (the flags of the JAX package's ``tests/test_extra_models.py``
+# mmdynamics run) and the ``recipes/baseline.py`` "teacher" with only its
+# fusion type changed.
+DYN_CONFIG = dict(PAPER, fusion_type="mmdynamics", pred_distill=0,
+                  CRD_distill=0, n_data=256)
+TEACHER_RECIPE = dict(PAPER, pred_distill=1, CRD_distill=0,
+                      cut_fuse_grad=True, beta1=0.9, n_data=256)
+NEW_FUSIONS = ("polynomial_fusion", "LMF", "HFB")
+# launches of B5 per mmdynamics step under --paired_conv: 4 forwards of
+# the 64-channel stage and 4 data gradients (one forward, no EMA)
+DYN_B5_PER_STEP = 8
+
+
+def _dynamics_path(card, gen, dev, paired=False):
+    """Phase 28: the mmdynamics step at full width through
+    ``init_teacher_state`` and ``build_mmdynamics_train_step`` on a
+    device-resident batch: 4 windows of 5 steps.  No Kronecker kernel,
+    B5 ``DYN_B5_PER_STEP`` times per step under ``--paired_conv``; finite
+    losses and gradients; 0 host syncs; the EMA model's parameters and
+    buffers bitwise unchanged (the step never updates it)."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.train.steps import \
+        build_mmdynamics_train_step
+
+    opt = Options(**DYN_CONFIG, paired_conv=paired)
+    state = _teacher_state(opt)
+    ema = {k: v.clone() for k, v in state.ema_model.state_dict().items()}
+    batch = _train_batch(opt, gen, dev)
+    step = build_mmdynamics_train_step(opt)
+    label = "mmdynamics step" + (" (paired_conv)" if paired else "")
+    r = _step_window(card, label, state, lambda: step(state, batch),
+                     {"conv3x3": DYN_B5_PER_STEP if paired else 0},
+                     n_warm=3, n_windows=4,
+                     kernels=(("B5 (conv3x3)", "conv3x3"),))
+    if r["syncs"] != 0:
+        raise RuntimeError(f"{label} synchronises the host: {r['where']}")
+    if set(r["history"][-1]) != {"loss", "correct_fuse"}:
+        raise RuntimeError(f"{label} metrics {sorted(r['history'][-1])}")
+    for k, v in state.ema_model.state_dict().items():
+        if not torch.equal(v, ema[k]):
+            raise RuntimeError(f"{label}: the EMA model's {k} changed")
+    print(f"{label}: the EMA model's parameters and buffers are bitwise "
+          f"unchanged ({card})")
+    return r
+
+
+def _fusion_paths(card, gen, dev):
+    """Phase 29: the teacher step of the ``teacher`` recipe with each of
+    ``NEW_FUSIONS``: one window of 5 steps each, no kernel of the port
+    (their Kronecker products are an einsum, as in the JAX package), 0
+    host syncs."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.train.steps import \
+        build_teacher_train_step
+
+    out = {}
+    for fusion_type in NEW_FUSIONS:
+        opt = Options(**TEACHER_RECIPE, fusion_type=fusion_type)
+        state = _teacher_state(opt)
+        batch = _train_batch(opt, gen, dev)
+        step = build_teacher_train_step(opt)
+        label = f"{fusion_type} teacher step"
+        r = _step_window(card, label, state, lambda: step(state, batch, 0.1),
+                         {}, kernels=())
+        if r["syncs"] != 0:
+            raise RuntimeError(f"{label} synchronises the host: "
+                               f"{r['where']}")
+        out[fusion_type] = r
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dynamics_cross_check(card, gen, batch_size=4):
+    """Phase 30: one fp32 mmdynamics step on the card (TF32 off) against
+    the CPU (oneDNN off) from the same state and views, every dropout 0
+    (MMDynamic's fixed 0.5 set to 0 on both sides), at phase 9's
+    tolerances: loss and accuracy count at rtol 2e-3 / atol 5e-4; Adam's
+    first moment of the heads (the fusion, MaxNet, ``fc_new1`` but its
+    bias, which feeds a train-mode BatchNorm, ``fc_new2``) at rtol 2e-3
+    with an atol of 2e-3 of each tensor's largest element, the trunk's by
+    the norm of the difference at 2e-2."""
+    import copy
+
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import make_lr_schedule
+    from multimodal_learning_tpu_torch.train import steps
+
+    opt = Options(**{**DYN_CONFIG, "compute_dtype": "float32",
+                     "dropout_rate": 0.0, "batch_size": batch_size})
+    model = define_model(opt, generator=torch.Generator().manual_seed(SEED))
+    model.fusion.drop.p = 0.0
+    batch = _train_batch(opt, gen, "cpu")
+    views = (torch.rand(batch_size, 2, opt.input_size_path,
+                        opt.input_size_path, 3, generator=gen) * 2 - 1)
+    augment = steps.augment_views
+    steps.augment_views = lambda g, v, dtype: views.to(v.device, dtype)
+    results = {}
+    try:
+        for where in ("cuda", "cpu"):
+            state = steps.init_teacher_state(
+                opt, copy.deepcopy(model), make_lr_schedule(opt, 50),
+                opt.n_data, seed=SEED, device=where)
+            with torch.backends.mkldnn.flags(enabled=False):
+                _, metrics = steps.build_mmdynamics_train_step(opt)(
+                    state, {k: v.to(where) for k, v in batch.items()})
+            adam = state.optimizer.optimizer.state
+            results[where] = (
+                {k: v.cpu() for k, v in metrics.items()},
+                {n: adam[p]["exp_avg"].cpu()
+                 for n, p in state.model.named_parameters()})
+    finally:
+        steps.augment_views = augment
+    (m_gpu, mu_gpu), (m_cpu, mu_cpu) = results["cuda"], results["cpu"]
+    for k in m_cpu:
+        torch.testing.assert_close(m_gpu[k].float(), m_cpu[k].float(),
+                                   rtol=2e-3, atol=5e-4, msg=k)
+    worst_el, worst_norm = 0.0, 0.0
+    for n, want in mu_cpu.items():
+        diff = mu_gpu[n] - want
+        if n.startswith("path_net.") and "fc_new" not in n:
+            rel = (diff.norm() / want.norm().clamp_min(1e-30)).item()
+            if rel > 2e-2:
+                raise AssertionError(f"mmdynamics exp_avg {n}: |card - cpu|"
+                                     f" / |cpu| = {rel:.3e} > 2e-2")
+            worst_norm = max(worst_norm, rel)
+            continue
+        if n == "path_net.fc_new1.0.bias":
+            continue
+        atol = max(1e-6, 2e-3 * want.abs().max().item())
+        torch.testing.assert_close(mu_gpu[n], want, rtol=2e-3, atol=atol,
+                                   msg=f"mmdynamics exp_avg {n}")
+        worst_el = max(worst_el, (diff.abs().max()
+                                  / want.abs().max().clamp_min(1e-30)).item())
+    print("fp32 mmdynamics step card vs cpu:", {
+        k: f"{float(m_gpu[k]):.6f}/{float(m_cpu[k]):.6f}" for k in m_cpu},
+          f"exp_avg heads worst max|diff| / max|cpu| = {worst_el:.3e}, "
+          f"trunk worst |diff| / |cpu| = {worst_norm:.3e} (batch "
+          f"{batch_size}, 512^2; {card})")
+
+
+def _fusion_eval_cross_check(card, gen, batch_size=4):
+    """Phase 30: the fp32 serving forward (``make_infer_fn``) of each new
+    fusion type and of the mmdynamics model at full width, on the card
+    (TF32 off) against the CPU from the same weights, every output at rtol
+    2e-3 / atol 5e-4 (phase 5's tolerance)."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.serve import make_infer_fn
+
+    x = torch.randint(0, 256, (batch_size, 512, 512, 3), dtype=torch.uint8,
+                      generator=gen)
+    om = torch.randn(batch_size, 80, generator=gen)
+    for cfg in [dict(TEACHER_RECIPE, fusion_type=f) for f in NEW_FUSIONS] + [
+            DYN_CONFIG]:
+        opt = Options(**{**cfg, "compute_dtype": "float32"})
+        model = define_model(opt, generator=torch.Generator().manual_seed(
+            SEED))
+        want = make_infer_fn(opt, model)(x, om)
+        got = make_infer_fn(opt, model.to("cuda"))(x, om)
+        errs = {}
+        for k in want:
+            torch.testing.assert_close(got[k].cpu(), want[k], rtol=2e-3,
+                                       atol=5e-4, msg=k)
+            errs[k] = f"{(got[k].cpu() - want[k]).abs().max().item():.3e}"
+        print(f"fp32 {opt.fusion_type} eval forward card vs cpu, "
+              f"max_abs_err {errs} (rtol 2e-3, atol 5e-4; {card})")
+        del model
+    torch.cuda.empty_cache()
+
+
+def _dynamics_chain(card, gen, n_train=64, n_test=32, epochs=2):
+    """Phase 31: the mmdynamics chain through the CLIs as a user runs them,
+    on one synthetic fold at full width with ``--paired_conv True``:
+    ``cli.train_cv_MT`` (2 epochs of 4 steps), ``cli.test_cv_MT``, which
+    must reproduce the final training eval exactly, then
+    ``cli.export_model`` and ``cli.predict`` on ``N_IMAGES`` PNGs, whose
+    outputs are ``{"pred_fuse"}``; launches checked per step and per
+    forward.  Then times the exported artifact's serving forward on a
+    device-resident batch of 16."""
+    from multimodal_learning_tpu_torch.cli import (export_model, predict,
+                                                   test_cv_MT, train_cv_MT)
+    from multimodal_learning_tpu_torch.eval import load_pred_test
+    from multimodal_learning_tpu_torch.serve import load_exported
+
+    bs = PAPER["batch_size"]
+    steps, fwd = epochs * (n_train // bs), -(-n_test // bs)
+    name = "smoke_mmd"
+    cfg = {**DYN_CONFIG, "paired_conv": True, "synthetic_data": True,
+           "synthetic_folds": 1, "niter_decay": epochs, "model_name": name}
+    cfg.pop("n_data")
+    b5 = DYN_B5_PER_STEP
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        results, out["train_cv_MT"] = _run_cli(
+            train_cv_MT.main, cfg, root,
+            {"conv3x3": b5 * steps + 4 * epochs * fwd},
+            f"mmdynamics chain: train_cv_MT ({steps} steps, {epochs} evals "
+            f"of {n_test} ROIs)", card)
+        res = results[1]
+        tested, out["test_cv_MT"] = _run_cli(
+            test_cv_MT.main, cfg, root, {"conv3x3": 4 * fwd},
+            "mmdynamics chain: test_cv_MT", card)
+        ckpt_dir = os.path.join(root, "grad_15", name)
+        dumped = load_pred_test(os.path.join(ckpt_dir,
+                                             f"{name}_1_pred_test.pkl"))
+        if tested != {"fuse": [res["metrics_fuse"]], "path": [],
+                      "omic": []}:
+            raise RuntimeError(f"mmdynamics test_cv_MT's metrics {tested} "
+                               "differ from the training-time final eval "
+                               f"{res['metrics_fuse']}")
+        if not np.array_equal(dumped["probs"]["fuse"], res["probs"]["fuse"]):
+            raise RuntimeError("mmdynamics test_cv_MT's probabilities "
+                               "differ from the training-time final eval")
+        if not np.isfinite(res["probs"]["fuse"]).all():
+            raise RuntimeError("mmdynamics probabilities are not finite")
+        print("mmdynamics chain: test_cv_MT reproduces the final eval "
+              "exactly; AUC/AP/F1/F1-IV",
+              [round(float(v), 5) for v in res["metrics_fuse"]], f"({card})")
+
+        img_dir, csv = _write_inputs(root, 600, 80, gen)
+        counters = _counters()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        written = export_model.main(["--checkpoints_dir", root,
+                                     "--exp_name", "grad_15",
+                                     "--model_name", name,
+                                     "--export_batch", str(bs)])
+        pred = predict.main(["--artifact", written[0], "--images_dir",
+                             img_dir, "--omic_csv", csv, "--batch_size",
+                             str(bs), "--quiet"])
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        n_fwd = 1 + -(-N_IMAGES // bs)   # export's check + the batches
+        want = {k: (4 * n_fwd if k == "conv3x3" else 0) for k in counters}
+        print(f"mmdynamics chain: export_model + predict on {N_IMAGES} "
+              f"images in {time.perf_counter() - t0:.2f} s, launches {got} "
+              f"({card})")
+        if got != want:
+            raise RuntimeError(f"export_model + predict launched {got}, "
+                               f"expected {want}")
+        with open(written[0] + ".json") as fh:
+            outputs = json.load(fh)["outputs"]
+        if outputs != ["pred_fuse"] or set(pred) != {"pred_fuse", "prob",
+                                                      "grade"}:
+            raise RuntimeError(f"the mmdynamics artifact serves {outputs}, "
+                               f"predict returned {sorted(pred)}")
+        if pred["pred_fuse"].shape != (N_IMAGES, 3) or not np.isfinite(
+                pred["pred_fuse"]).all():
+            raise RuntimeError("the mmdynamics predictions are not finite "
+                               f"[{N_IMAGES}, 3]")
+        np.testing.assert_allclose(pred["prob"].sum(axis=1), 1.0, rtol=1e-4)
+
+        infer = load_exported(written[0], "cuda")
+        xb = torch.randint(0, 256, (bs, 512, 512, 3), dtype=torch.uint8,
+                           generator=gen).to("cuda")
+        ob = torch.randn(bs, 80, generator=gen).to("cuda")
+        for _ in range(3):
+            infer(xb, ob)
+        torch.cuda.synchronize()
+        n_iter = 20
+        t0 = time.perf_counter()
+        for _ in range(n_iter):
+            infer(xb, ob)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / n_iter
+        out["serve_ms"], out["serve_pps"] = ms, 1e3 * bs / ms
+        print(f"timing mmdynamics serve: {ms:.3f} ms per batch of {bs}, "
+              f"{out['serve_pps']:.1f} patches/s (bf16, 512^2, paired_conv,"
+              f" device-resident input; {card})")
+        _profile_serve(infer, xb, ob, card)
+    return out
+
+
 def _write_inputs(root, size, d_omic, gen):
     from PIL import Image
     img_dir = os.path.join(root, "rois")
@@ -2432,6 +2723,31 @@ def main() -> int:
     stamp(27)
     hkd_chain = _hkd_chain(card, mia_root.name)
     mia_root.cleanup()
+    torch.cuda.empty_cache()
+    # 28. the mmdynamics step, unpaired and paired
+    stamp(28)
+    dyn = {paired: _dynamics_path(card, gen, dev, paired)
+           for paired in (False, True)}
+    torch.cuda.empty_cache()
+    # 29. the teacher step with the polynomial, LMF and HFB fusions
+    stamp(29)
+    fusions = _fusion_paths(card, gen, dev)
+    # 30. fp32 card against CPU: one mmdynamics step, the new types' eval
+    stamp(30)
+    _dynamics_cross_check(card, gen)
+    _fusion_eval_cross_check(card, gen)
+    # 31. the mmdynamics chain through the CLIs, and its serving forward
+    stamp(31)
+    dyn_chain = _dynamics_chain(card, gen)
+    print("A17 steps per step (bf16, 512^2, batch 16): " + "; ".join(
+        f"{name}: host {r['host_ms']:.3f} ms, kernels "
+        f"{r.get('kernel_ms', float('nan')):.3f} ms, busy "
+        f"{100 * r.get('busy', float('nan')):.1f}%, {r['syncs']:g} syncs"
+        for name, r in [("mmdynamics", dyn[False]),
+                        ("mmdynamics paired", dyn[True]),
+                        *((f"{f} teacher", fusions[f])
+                          for f in NEW_FUSIONS)]) + f"; mmdynamics serving "
+          f"{dyn_chain['serve_ms']:.3f} ms per batch of 16 ({card})")
     print("A15 steps per step (bf16, 512^2, batch 16): " + "; ".join(
         f"{name}: host {r['host_ms']:.3f} ms, kernels "
         f"{r.get('kernel_ms', float('nan')):.3f} ms, busy "
@@ -2500,7 +2816,12 @@ def main() -> int:
             "CLAT student step, paired_conv (5 steps)":
                 clat["paired"]["launches"]["conv3x3"],
             "MIA-2023 CLI chain": sum(
-                c["launches"]["conv3x3"] for c in clat_chain.values())},
+                c["launches"]["conv3x3"] for c in clat_chain.values()),
+            "mmdynamics step, paired_conv (20 steps)":
+                dyn[True]["launches"]["conv3x3"],
+            "mmdynamics CLI chain (train_cv_MT + test_cv_MT)":
+                dyn_chain["train_cv_MT"]["conv3x3"]
+                + dyn_chain["test_cv_MT"]["conv3x3"]},
     }
 
     kernels = [{
@@ -2568,7 +2889,7 @@ def main() -> int:
         "fp32_max_abs_err": conv_errs[torch.float32]})
     for k in kernels:
         k["launched_by"] = launched_by[k["name"]]
-    print(f"[chip_smoke] phases 1-27 in {time.perf_counter() - t_run:.1f} s "
+    print(f"[chip_smoke] phases 1-31 in {time.perf_counter() - t_run:.1f} s "
           f"({card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -153,7 +153,7 @@ class Options:
     lambda_reg: float = 3e-4
     lambda_nll: float = 1.0
 
-    fusion_type: str = "pofusion"          # concat|pofusion|polynomial_fusion|LMF|HFB
+    fusion_type: str = "pofusion"          # concat|pofusion|polynomial_fusion|LMF|HFB|mmdynamics
     skip: int = 0
     use_bilinear: int = 1
     path_gate: int = 1

@@ -1,7 +1,11 @@
 from .common import apply_act
 from .factory import define_model
-from .fusion import Bilinear, BilinearFusion
+from .fusion import (Bilinear, BilinearFusion, HFBFusion, LMFusion,
+                     PolynomialFusion, TrilinearFusion)
 from .import_flax import flax_from_state_dict, state_dict_from_flax
-from .maxnet import MaxNet
-from .pathomic import PathomicModel, PathomicOutput, make_fusion
+from .maxnet import MaxNet, MaxNetDecoder
+from .mmdynamic import MMDynamic
+from .pathomic import (PathomicDynamicsModel, PathomicModel, PathomicOutput,
+                       make_fusion)
 from .resnet import ResNet, ResNet18
+from .resnet_decoder import ResnetDecoder

@@ -7,7 +7,7 @@ import torch
 from torch import nn
 
 from .maxnet import MaxNet
-from .pathomic import PathomicModel
+from .pathomic import PathomicDynamicsModel, PathomicModel
 from .resnet import ResNet18
 
 
@@ -15,6 +15,12 @@ def _dtype(opt) -> torch.dtype:
     """Compute dtype of the ResNet and MaxNet encoders; fusion and the
     classifier stay float32, as in the JAX package."""
     return torch.bfloat16 if opt.compute_dtype == "bfloat16" else torch.float32
+
+
+def is_dynamics(opt) -> bool:
+    """The mmdynamics model: its own train step, eval forward and serving
+    output (``PathomicDynamicsModel``)."""
+    return opt.mode == "pathomic" and opt.fusion_type == "mmdynamics"
 
 
 def define_model(opt, path_only: bool = False, omic_only: bool = False,
@@ -34,6 +40,14 @@ def define_model(opt, path_only: bool = False, omic_only: bool = False,
                       label_dim=opt.label_dim,
                       init_max=(opt.init_type == "max"), dtype=_dtype(opt),
                       generator=generator)
+    if is_dynamics(opt):
+        return PathomicDynamicsModel(
+            path_dim=opt.path_dim, omic_dim=opt.omic_dim, mmhid=opt.mmhid,
+            label_dim=opt.label_dim, input_size_omic=opt.input_size_omic,
+            dropout_rate=opt.dropout_rate, act_type=opt.act_type,
+            init_max=(opt.init_type == "max"), dtype=_dtype(opt),
+            paired_conv=getattr(opt, "paired_conv", False),
+            generator=generator)
     if opt.mode == "pathomic":
         return PathomicModel(
             path_dim=opt.path_dim, omic_dim=opt.omic_dim, mmhid=opt.mmhid,

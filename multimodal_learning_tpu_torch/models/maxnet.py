@@ -6,6 +6,11 @@ module names (``MICCAI-2022/networks_new.py:182-251``): a 4-layer SNN
 (``encoder.K``), a ReLU feature head, and a linear classifier
 (``classifier.0``).  Returns ``(features, hazard, pred)``; the classifier
 runs in float32 on the float32 features, as in the JAX module.
+
+:class:`MaxNetDecoder` is the reverse SNN ``z -> 32 -> 48 -> 64 ->
+output_dim`` (CLAT stage-1 dead code in the reference,
+``MIA 2023/stage1_multi_modal_teacher/networks_new.py:493-521``,
+library-level here), with the JAX module's names ``decoder1..4``.
 """
 from __future__ import annotations
 
@@ -42,3 +47,28 @@ class MaxNet(nn.Module):
         features = torch.relu(h).float()
         hazard = self.classifier(features)
         return features, hazard, apply_act(self.act_type, hazard)
+
+
+class MaxNetDecoder(nn.Module):
+    """``decoder1..3`` = [Linear (max init, zero bias) -> ELU ->
+    AlphaDropout], then the Linear ``decoder4``; float32 output."""
+
+    def __init__(self, omic_dim: int = 32, output_dim: int = 80,
+                 dropout_rate: float = 0.25,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        d = omic_dim
+        for i, width in enumerate((32, 48, 64, output_dim), 1):
+            setattr(self, f"decoder{i}",
+                    init_linear_(nn.Linear(d, width), True, generator))
+            d = width
+        self.act, self.drop = nn.ELU(), nn.AlphaDropout(dropout_rate)
+
+    def forward(self, z) -> torch.Tensor:
+        with autocast(z, self.dtype):
+            h = z.to(self.dtype)
+            for i in (1, 2, 3):
+                h = self.drop(self.act(getattr(self, f"decoder{i}")(h)))
+        return self.decoder4(h.float()).float()

@@ -9,6 +9,10 @@ before fusion (``networks_new.py:302-311``); ``fusion_type='concat'``
 concatenates the features (stage-1 variant, classifier takes
 ``path_dim+omic_dim``).  Train or eval mode is the module's
 ``training`` flag.
+
+:class:`PathomicDynamicsModel` is the mmdynamics container (reference
+``PathomicNet_dynamics``, ``networks_new.py:372-418``): the same encoders
+feed :class:`~.mmdynamic.MMDynamic`, which computes its own loss.
 """
 from __future__ import annotations
 
@@ -18,8 +22,9 @@ import torch
 from torch import nn
 
 from .common import apply_act, init_linear_
-from .fusion import BilinearFusion
+from .fusion import BilinearFusion, HFBFusion, LMFusion, PolynomialFusion
 from .maxnet import MaxNet
+from .mmdynamic import MMDynamic
 from .resnet import ResNet18
 
 
@@ -41,24 +46,63 @@ def make_fusion(fusion_type: str, *, skip=0, use_bilinear=1, path_gate=1,
                 omic_gate=1, path_dim=128, omic_dim=128, path_scale=1,
                 omic_scale=1, mmhid=128, dropout_rate=0.25,
                 pallas_fusion="off", generator=None) -> Optional[nn.Module]:
-    """reference ``define_bifusion`` (``networks_new.py:148-175``).
+    """reference ``define_bifusion`` (``networks_new.py:148-175``) with the
+    JAX package's polynomial, LMF (rank 4) and HFB (rank 20) types.
     ``pallas_fusion`` routes the pofusion Kronecker contraction through the
-    CUDA kernel: "eval" for the eval forward, "train" for training too."""
+    CUDA kernel: "eval" for the eval forward, "train" for training too; the
+    other types have no kernel and ignore it, as in the JAX package."""
+    gated = dict(skip=skip, use_bilinear=use_bilinear, gate1=path_gate,
+                 gate2=omic_gate, dim1=path_dim, dim2=omic_dim,
+                 scale_dim1=path_scale, scale_dim2=omic_scale, mmhid=mmhid,
+                 dropout_rate=dropout_rate, generator=generator)
     if fusion_type == "pofusion":
         return BilinearFusion(
-            skip=skip, use_bilinear=use_bilinear, gate1=path_gate,
-            gate2=omic_gate, dim1=path_dim, dim2=omic_dim,
-            scale_dim1=path_scale, scale_dim2=omic_scale, mmhid=mmhid,
-            dropout_rate=dropout_rate,
-            pallas_eval=pallas_fusion in ("eval", "train"),
-            pallas_train=pallas_fusion == "train", generator=generator)
+            **gated, pallas_eval=pallas_fusion in ("eval", "train"),
+            pallas_train=pallas_fusion == "train")
+    if fusion_type == "polynomial_fusion":
+        return PolynomialFusion(**gated)
+    if fusion_type == "LMF":
+        return LMFusion(dim1=path_dim, dim2=omic_dim, mmhid=mmhid, rank=4,
+                        dropout_rate=dropout_rate, generator=generator)
+    if fusion_type == "HFB":
+        return HFBFusion(dim1=path_dim, dim2=omic_dim, mmhid=mmhid, rank=20,
+                         dropout_rate=dropout_rate, generator=generator)
     if fusion_type == "concat":
         return None
-    if fusion_type in ("polynomial_fusion", "LMF", "HFB", "mmdynamics"):
-        raise NotImplementedError(
-            f"fusion type [{fusion_type}] is not ported yet (ROADMAP queue "
-            "A, item 17: the remaining models)")
     raise NotImplementedError(f"fusion type [{fusion_type}] is not found")
+
+
+class PathomicDynamicsModel(nn.Module):
+    """The mmdynamics model: ``path_net`` and ``omic_net`` feed
+    ``fusion``, an :class:`MMDynamic` over their features with one hidden
+    layer of ``mmhid`` and a dropout of 0.5 whatever ``dropout_rate`` says
+    (JAX ``pathomic.py:101-103``; ``dropout_rate`` reaches MaxNet only).
+    ``forward(x_path, x_omic, labels)`` returns ``(loss, mm_logit,
+    tcp_logits)``; with ``infer=True`` or without labels, ``mm_logit``."""
+
+    def __init__(self, path_dim: int = 128, omic_dim: int = 128,
+                 mmhid: int = 128, label_dim: int = 3,
+                 input_size_omic: int = 80, dropout_rate: float = 0.25,
+                 act_type: str = "LSM", init_max: bool = True,
+                 dtype: torch.dtype = torch.float32, paired_conv: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.path_net = ResNet18(path_dim=path_dim, num_classes=label_dim,
+                                 act_type=act_type, dtype=dtype,
+                                 generator=generator, paired=paired_conv)
+        self.omic_net = MaxNet(input_dim=input_size_omic, omic_dim=omic_dim,
+                               dropout_rate=dropout_rate, act_type=act_type,
+                               label_dim=label_dim, init_max=init_max,
+                               dtype=dtype, generator=generator)
+        self.fusion = MMDynamic((path_dim, omic_dim), hidden_dim=(mmhid,),
+                                num_class=label_dim, dropout=0.5,
+                                generator=generator)
+
+    def forward(self, x_path, x_omic, labels=None, infer: bool = False):
+        path_feat = self.path_net(x_path)[1]
+        omic_feat = self.omic_net(x_omic)[0]
+        return self.fusion([path_feat, omic_feat], labels=labels,
+                           infer=infer)
 
 
 class PathomicModel(nn.Module):

@@ -17,6 +17,9 @@ Deviation from the JAX package: its ``make_infer_fn`` reroutes a
 must also lower for the CPU, where a TPU kernel cannot.  The port keeps the
 Kronecker-fusion kernel on the serving path; on the CPU the same model runs
 the kernel's plain version.
+
+An mmdynamics model serves its fused branch alone,
+``{"pred_fuse": log_softmax(mm_logit)}`` (JAX ``serve/export.py:72-77``).
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from ..config import Options
-from ..models.factory import _dtype, define_model
+from ..models.factory import _dtype, define_model, is_dynamics
 from ..models.pathomic import PathomicOutput
 
 _BRANCHES = ("hazard_fuse", "hazard_path", "hazard_omic",
@@ -76,6 +79,10 @@ def make_infer_fn(opt, model) -> Callable:
             x = None
             if opt.mode in ("path", "pathomic"):
                 x = torch.as_tensor(x_path, device=dev).to(dt) / 127.5 - 1.0
+            if is_dynamics(opt):
+                mm_logit = model(x, x_omic, infer=True)
+                return {"pred_fuse": torch.log_softmax(mm_logit, dim=1)
+                        .float()}
             if opt.mode == "pathomic":
                 raw = model(x_path=x, x_omic=x_omic)
             else:

@@ -25,8 +25,11 @@ views with the SLIC label maps of ``--num_superpixels`` segments and
 switches to the masked step once ``epoch > --start_epoch``
 (``train_test_MT_SP_Masking.py:199``).
 
-Refused, naming their ROADMAP items: mmdynamics (A17) and
-``--data_parallel`` above 1 (A19).
+``--fusion_type mmdynamics`` trains through
+``build_mmdynamics_train_step`` (JAX ``loop.py:180-181``); its metrics are
+``loss`` and ``correct_fuse`` and its eval the fused branch alone.
+
+Refused, naming its ROADMAP item: ``--data_parallel`` above 1 (A19).
 """
 from __future__ import annotations
 
@@ -40,26 +43,24 @@ import torch
 from ..data.pipeline import Loader, PathomicDataset, PrefetchLoader
 from ..eval.metrics import (accuracy_cox, concordance_index, cox_log_rank,
                             grading_metrics, one_hot)
-from ..models.factory import define_model
+from ..models.factory import define_model, is_dynamics
 from ..models.import_flax import flax_from_state_dict
 from ..utils.checkpoint import (load_train_state, save_checkpoint,
                                 save_train_state)
 from ..utils.logging import MetricsLogger
 from .import_state import jax_state_tree
 from .schedules import PlateauTracker, make_lr_schedule
-from .steps import (build_eval_step, build_teacher_train_step,
-                    init_teacher_state, resolve_device)
+from .steps import (build_eval_step, build_mmdynamics_train_step,
+                    build_teacher_train_step, init_teacher_state,
+                    resolve_device)
 
 _BRANCHES = ("fuse", "path", "omic")
 
 
 def _refuse_unported(opt) -> None:
-    for cond, what in (
-            (opt.mode == "pathomic" and opt.fusion_type == "mmdynamics",
-             "--fusion_type mmdynamics: ROADMAP A17"),
-            (opt.data_parallel > 1, "--data_parallel > 1: ROADMAP A19")):
-        if cond:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if opt.data_parallel > 1:
+        raise NotImplementedError(
+            "--data_parallel > 1: ROADMAP A19 is not ported yet")
 
 
 def _fetch(tensors):
@@ -207,7 +208,8 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
     log("Number of Trainable Parameters: %d" % sum(
         p.numel() for m in (state.model, state.embeds)
         for p in m.parameters()))
-    train_step = build_teacher_train_step(opt)
+    train_step = (build_mmdynamics_train_step(opt) if is_dynamics(opt)
+                  else build_teacher_train_step(opt))
     masked_step = (build_teacher_train_step(opt, masking=True)
                    if _use_masking(opt) else None)
     eval_step = build_eval_step(opt)

@@ -36,7 +36,11 @@ EMA forwards' updates.
 L2-normalised branch features of the student and the EMA as two views,
 with the class labels (``task grad`` only), times ``supcon_weight``.
 
-Not ported yet, and refused: the mmdynamics fusion (ROADMAP A17).
+``--fusion_type mmdynamics`` trains through its own step,
+:func:`build_mmdynamics_train_step` (``PathomicNet_dynamics``,
+``networks_new.py:372-418``): the MMDynamic fusion's composite loss plus
+L1, no mean teacher, CRD or pred-KD; its eval forward returns the fused
+logits alone.
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ from ..losses import (cox_loss, l1_regularizer, nll_loss, orth_loss,
                       pred_kd_loss, sp_loss, supcon_loss)
 from ..lowrank import build_view_features, update_adj_tensor, update_aux
 from ..masking.superpixel import frozen_params, superpixel_attention_mask
-from ..models.factory import _dtype
+from ..models.factory import _dtype, is_dynamics
 from ..models.fusion import _KronEncoder1
 from ..models.pathomic import PathomicOutput
 from .ema import update_ema
@@ -139,12 +143,6 @@ def _use_tsvd(opt) -> bool:
     return bool(opt.tSVD_loss) and opt.mode == "pathomic"
 
 
-def _refuse_unported(opt) -> None:
-    if opt.mode == "pathomic" and opt.fusion_type == "mmdynamics":
-        raise NotImplementedError(
-            "--fusion_type mmdynamics: ROADMAP A17 is not ported yet")
-
-
 def resolve_device(device=None) -> torch.device:
     """CUDA unless the caller names a device; no silent CPU fallback."""
     if device is not None:
@@ -163,7 +161,6 @@ def init_teacher_state(opt, model: nn.Module, lr_schedule, n_data: int,
     a device generator seeded with ``seed`` for augmentation and the
     Kronecker dropout masks.  ``--global_step`` seeds the step counter
     (reference ``iter_num``, ``train_test_MT.py:104``)."""
-    _refuse_unported(opt)
     dev = resolve_device(device)
     if opt.init_type not in ("max", "none", "normal_default"):
         raise NotImplementedError(
@@ -314,7 +311,6 @@ def build_teacher_train_step(opt, masking: bool = False):
     positive).  ``tsvd_update``, a host bool, says whether a
     ``--tSVD_loss`` step refreshes the ADMM tensors.  The masked step
     (``masking=True``) takes 4 views and ``sp_mask`` [B, H, W] int32."""
-    _refuse_unported(opt)
     if masking and opt.mode != "pathomic":
         raise ValueError("the masked step needs --mode pathomic")
     if masking and opt.masking_bn not in ("chain", "discard"):
@@ -441,12 +437,43 @@ def build_teacher_train_step(opt, masking: bool = False):
     return train_step
 
 
+def build_mmdynamics_train_step(opt):
+    """``train_step(state, batch, crd_weight=0.0, tsvd_update=True) ->
+    (state, metrics)`` for ``--fusion_type mmdynamics`` (JAX
+    ``train/steps.py:210-247``): view 0 of the augmented pair, one forward
+    with the labels, MMDynamic's loss plus ``lambda_reg`` times the L1
+    penalty, backward and Adam.  The metrics are ``loss`` and
+    ``correct_fuse``, left on the device.  No EMA update, CRD or pred-KD:
+    the EMA model and its buffers stay as they are, as the JAX step leaves
+    ``ema_params``.  ``crd_weight`` and ``tsvd_update`` are taken and
+    ignored, so that the fold loop calls every step alike."""
+    dtype = _dtype(opt)
+
+    def train_step(state: TrainState, batch, crd_weight: float = 0.0,
+                   tsvd_update: bool = True):
+        model = state.model.train()
+        x1 = augment_views(state.generator, batch["path_views"],
+                           dtype=dtype)[:, 0]
+        loss, mm_logit, _ = model(x1, batch["omic"], batch["g"])
+        loss = loss + opt.lambda_reg * l1_regularizer(model, opt.reg_type)
+        state.optimizer.zero_grad()
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return state, {"loss": loss.detach(), "correct_fuse": (
+            mm_logit.detach().argmax(dim=1) == batch["g"]).sum()}
+
+    return train_step
+
+
 def build_eval_step(opt):
     """``eval_step(model, batch, generator=None) -> (out, loss parts)``:
     the eval forward of view 0 (reference ``test()``,
     ``train_test_MT.py:340-458``); with ``--test_augment`` the view is
-    augmented from ``generator``, else normalised in the compute dtype."""
-    _refuse_unported(opt)
+    augmented from ``generator``, else normalised in the compute dtype.
+    The mmdynamics model gives the fused branch alone: ``hazard_fuse`` its
+    logits, ``pred_fuse`` their log-softmax (JAX ``train/steps.py:
+    598-605``)."""
     dtype = _dtype(opt)
 
     @torch.no_grad()
@@ -458,7 +485,13 @@ def build_eval_step(opt):
             x = batch["path_views"][:, 0]
             x = (augment_view(generator, x, dtype=dtype) if opt.test_augment
                  else x.to(dtype) / 127.5 - 1.0)
-        out = adapt_output(opt, _apply(opt, model, batch, x))
+        if is_dynamics(opt):
+            mm_logit = model(x, batch["omic"], infer=True)
+            out = PathomicOutput(None, None, None, None, mm_logit, None, None,
+                                 torch.log_softmax(mm_logit, dim=1), None,
+                                 None)
+        else:
+            out = adapt_output(opt, _apply(opt, model, batch, x))
         return out, task_losses(opt, out, batch)[1]
 
     return eval_step

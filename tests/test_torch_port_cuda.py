@@ -746,3 +746,69 @@ def test_supcon_teacher_step_launches_b1_twice_without_syncs(cuda):
     assert got == {"B1": 2, "B2": 0, "B3": 0, "B4": 0, "B5": 0}
     assert where == []
     assert float(out["loss_supcon"]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paired,per_step", [(False, {}), (True, dict(B5=8))])
+def test_mmdynamics_step_launches(cuda, paired, per_step):
+    """The mmdynamics step (``build_mmdynamics_train_step``): no Kronecker
+    kernel, since its fusion is MMDynamic; with ``--paired_conv`` B5 8
+    times per step (4 forwards of the 64-channel stage, 4 data
+    gradients); no host synchronisation; the EMA model left bitwise as it
+    was."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import make_lr_schedule
+    from multimodal_learning_tpu_torch.train.steps import (
+        build_mmdynamics_train_step, init_teacher_state)
+    opt = Options(mode="pathomic", task="grad", input_size_path=64,
+                  path_dim=16, omic_dim=16, mmhid=16, batch_size=4,
+                  fusion_type="mmdynamics", CRD_distill=0, pred_distill=0,
+                  compute_dtype="bfloat16", paired_conv=paired)
+    state = init_teacher_state(opt, define_model(
+        opt, generator=torch.Generator().manual_seed(2)),
+        make_lr_schedule(opt, 10), 32, device=cuda)
+    ema = {k: v.clone() for k, v in state.ema_model.state_dict().items()}
+    step = build_mmdynamics_train_step(opt)
+    batch = _small_batch(cuda)
+    step(state, batch)
+    start = _launches()
+    out = {}
+    where = _syncs(lambda: out.update(step(state, batch)[1]))
+    got = {k: v - start[k] for k, v in _launches().items()}
+    assert got == {k: per_step.get(k, 0) for k in got}
+    assert where == []
+    assert set(out) == {"loss", "correct_fuse"}
+    assert torch.isfinite(out["loss"])
+    for k, v in state.ema_model.state_dict().items():
+        assert torch.equal(v, ema[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fusion_type",
+                         ["polynomial_fusion", "LMF", "HFB", "mmdynamics"])
+def test_new_fusions_eval_forward_on_card_matches_cpu(cuda, fusion_type):
+    """The fp32 eval forward of a model with each new fusion type on the
+    card against the CPU, from the same weights, at the whole-model
+    tolerance of the CPU parity tests (rtol 2e-3 / atol 5e-4); no
+    Kronecker kernel launches."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.serve import make_infer_fn
+    opt = Options(mode="pathomic", task="grad", input_size_path=64,
+                  path_dim=16, omic_dim=16, mmhid=16,
+                  fusion_type=fusion_type, pallas_fusion="train")
+    model = define_model(opt, generator=torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    x = torch.randint(0, 256, (4, 64, 64, 3), dtype=torch.uint8, generator=g)
+    om = torch.randn(4, 80, generator=g)
+    want = make_infer_fn(opt, model)(x, om)
+    start = _launches()
+    got = make_infer_fn(opt, model.to(cuda))(x, om)
+    torch.cuda.synchronize()
+    assert {k: v - start[k] for k, v in _launches().items()} == dict.fromkeys(
+        start, 0)
+    assert set(got) == set(want)
+    for k in want:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=2e-3,
+                                   atol=5e-4, msg=k)

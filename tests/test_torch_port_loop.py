@@ -159,8 +159,7 @@ def test_resume_continues_after_the_snapshot(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (dict(init_type="xavier"), "A2"),
-    (dict(fusion_type="mmdynamics"), "A17"), (dict(data_parallel=2), "A19")])
+    (dict(init_type="xavier"), "A2"), (dict(data_parallel=2), "A19")])
 def test_train_teacher_refuses_what_is_not_ported(flags, item):
     data = make_synthetic_splits(n_train=8, n_test=4, roi_size=32, seed=0)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

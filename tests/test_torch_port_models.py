@@ -157,10 +157,21 @@ def test_pathomic_eval_matches_jax_all_branches(interpret_pallas):
 
 
 def test_concat_fusion_and_unported_types():
+    """concat has no fusion module; the polynomial, LMF and HFB types build
+    and run (their parity: ``tests/test_torch_port_fusions.py``); an
+    unknown type still raises."""
     _, params, stats, port = _pathomic_pair(11, fusion_type="concat")
     assert "fusion" not in params and port.fusion is None
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pm.PathomicModel(fusion_type="LMF")
+    x, om = torch.zeros(2, 32, 32, 3), torch.zeros(2, 80)
+    for fusion_type, cls in (("polynomial_fusion", pm.PolynomialFusion),
+                             ("LMF", pm.LMFusion), ("HFB", pm.HFBFusion)):
+        model = pm.PathomicModel(path_dim=8, omic_dim=8, mmhid=8,
+                                 fusion_type=fusion_type)
+        assert isinstance(model.fusion, cls)
+        with torch.no_grad():
+            assert model.eval()(x_path=x, x_omic=om).pred_fuse.shape == (2, 3)
+    with pytest.raises(NotImplementedError, match="not found"):
+        pm.PathomicModel(fusion_type="nope")
 
 
 def _assert_tree_equal(a, b):
@@ -171,7 +182,8 @@ def _assert_tree_equal(a, b):
         assert np.array_equal(np.asarray(x), np.asarray(y)), path
 
 
-@pytest.mark.parametrize("fusion_type", ["pofusion", "concat"])
+@pytest.mark.parametrize("fusion_type", ["pofusion", "concat",
+                                         "polynomial_fusion", "LMF", "HFB"])
 def test_weight_bridge_round_trips(fusion_type):
     """flax -> port -> flax is exact, and the JAX package's own torch
     importer reads the port's state_dict back into the same flax tree."""

@@ -193,6 +193,8 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.models.pathomic",
     "multimodal_learning_tpu_torch.models.factory",
     "multimodal_learning_tpu_torch.models.import_flax",
+    "multimodal_learning_tpu_torch.models.mmdynamic",
+    "multimodal_learning_tpu_torch.models.resnet_decoder",
     "multimodal_learning_tpu_torch.ops",
     "multimodal_learning_tpu_torch.ops._build",
     "multimodal_learning_tpu_torch.ops.kron_fusion",
@@ -242,6 +244,7 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.train.schedules",
     "multimodal_learning_tpu_torch.train.steps",
     "multimodal_learning_tpu_torch.train.import_state",
+    "multimodal_learning_tpu_torch.train.freeze",
     "multimodal_learning_tpu_torch.train.loop",
     "multimodal_learning_tpu_torch.train.student",
     "multimodal_learning_tpu_torch.train.student_clat",

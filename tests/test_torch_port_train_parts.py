@@ -368,11 +368,14 @@ def test_train_entry_points_refuse_what_is_not_ported():
     with pytest.raises(ValueError, match="masking_bn"):
         build_teacher_train_step(opt.replace(masking_bn="keep"),
                                  masking=True)
-    for kw, item in ((dict(fusion_type="mmdynamics"), "A17"),):
-        with pytest.raises(NotImplementedError, match=item):
-            build_teacher_train_step(opt.replace(**kw))
-        with pytest.raises(NotImplementedError, match=item):
-            build_eval_step(opt.replace(**kw))
+    # the remaining fusion types are ported: each builds its steps, and an
+    # unknown type still raises when its model is built
+    for fusion_type in ("polynomial_fusion", "LMF", "HFB", "mmdynamics"):
+        build_teacher_train_step(opt.replace(fusion_type=fusion_type))
+        build_eval_step(opt.replace(fusion_type=fusion_type))
+        define_model(opt.replace(fusion_type=fusion_type))
+    with pytest.raises(NotImplementedError, match="not found"):
+        define_model(opt.replace(fusion_type="nope"))
     # the loss-gated CRD is the single-positive weighted_CRDLoss, as in the
     # JAX package
     with pytest.raises(NotImplementedError, match="pos_mode exact/relax"):
