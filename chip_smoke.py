@@ -157,10 +157,38 @@ Phases, each of which raises on failure (nothing is caught):
     epochs of 4 steps), ``cli.test_cv_MT``, which must reproduce the
     final eval exactly, ``cli.export_model`` and ``cli.predict``, whose
     outputs are ``{"pred_fuse"}``; then times the exported artifact's
-    serving forward per batch of 16.
+    serving forward per batch of 16;
+32. writes a torchvision-style ResNet18 file (the trunk, a 1000-way
+    ``fc``, ``num_batches_tracked``) and a released-style wrapper of a
+    whole pofusion model, converts both with ``cli.convert_torch``
+    (``--arch resnet18``; ``--arch pathomic --state_key
+    ema_model_state_dict``); ``init_teacher_state`` with
+    ``--pretrained_path`` and ``--init_type max`` must load the trunk and
+    its running statistics bitwise, keep ``fc_new*`` as drawn and start
+    the EMA equal to the model; then ``cli.train_cv_MT`` with the file on
+    one synthetic fold, 1 epoch of 4 steps, ``--paired_conv True``: B1
+    twice and B5 12 times per step;
+33. ``--init_type normal|xavier|kaiming|orthogonal`` on the same file: the
+    trunk clobbered, biases exactly 0, each kernel's std within 5 % of its
+    JAX law (orthogonal: Q^T Q = gain^2 I to 1e-4); then one window of 5
+    flagship steps each with ``--optimizer_type adabound --lr_policy
+    onecycle`` and ``--optimizer_type adagrad``: B1 twice per step, finite
+    losses, 0 host syncs, host and kernel ms per step;
+34. ``cli.test_cv_MT --pretrained_path '<dir>/teacher_{k}.npz'`` with no
+    fold checkpoint: B2 once per eval forward, and its prediction pickle
+    bitwise equal to ``train.loop.evaluate`` of the same weights loaded by
+    ``load_state_dict``;
+35. ``cli.export_model`` of those weights to ``torch.export`` ``.pt2``
+    artifacts at batch 16 and with a dynamic batch, unpaired and paired;
+    ``cli.predict`` of all four in a fresh ``python3`` that must not import
+    the port's ``models``, each output bitwise the eager ``make_infer_fn``;
+    the dynamic artifacts serve batches 1, 5 and 16 bitwise; B2 once and
+    B5 4 times (paired) per forward; ms per batch of 16, artifact against
+    eager, in turns; the host cost of the registered ops' dispatch per
+    launch.
 
 Every phase that counts host synchronisations (7, 11, 14, 15, 19, 21,
-23, 24, 25, 28, 29) fails if one comes from the augmentation.
+23, 24, 25, 28, 29, 33) fails if one comes from the augmentation.
 
 Phase 3 also holds B5 against its plain version (TF32 off), in bf16 and
 fp32, at the stage-1 shape, ragged ones, one with many tiles per block, one
@@ -2413,6 +2441,555 @@ def _dynamics_chain(card, gen, n_train=64, n_test=32, epochs=2):
     return out
 
 
+# Phases 32-35: the released-checkpoint and serving slice (ROADMAP A18, A2,
+# A8): the ``teacher`` recipe's width, bf16, 512^2, batch 16, weights from
+# seed 2019 built in process.  The flagship step of phase 7 carries the
+# optimizers and schedules of phase 33.
+INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
+INIT_GAIN = 0.02
+
+
+def _perturb_bn(model, gen):
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.running_mean.uniform_(-0.2, 0.2, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+                m.num_batches_tracked.fill_(30)
+    return model
+
+
+def _released_files(root, gen):
+    """Phase 32's inputs, written with ``torch.save`` and converted by the
+    port's ``cli.convert_torch``: a torchvision-style ResNet18 (the port
+    trunk without ``fc_new*``, with a 1000-way ``fc`` and
+    ``num_batches_tracked``) and a released-style wrapper of a whole
+    pofusion model (distinct model and EMA weights).  Returns the ``.npz``
+    paths, the trunk's state dict and the EMA's."""
+    from multimodal_learning_tpu_torch.cli import convert_torch
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    opt = Options(**TEACHER_RECIPE)
+    trunk = _perturb_bn(define_model(
+        opt.replace(mode="path"), generator=torch.Generator().manual_seed(
+            SEED + 1)), gen).state_dict()
+    tv = {k: v for k, v in trunk.items() if not k.startswith("fc_new")}
+    tv["fc.weight"] = torch.randn(1000, 512, generator=gen) * 0.01
+    tv["fc.bias"] = torch.zeros(1000)
+    model, ema = (_perturb_bn(define_model(
+        opt, generator=torch.Generator().manual_seed(SEED + s)), gen)
+        for s in (2, 3))
+    wrapper = {"split": 1, "opt": {"mode": "pathomic", "task": "grad"},
+               "epoch": 30, "data": {}, "model_state_dict": model.state_dict(),
+               "ema_model_state_dict": ema.state_dict(),
+               "optimizer_state_dict": {"param_groups": [], "state": {}},
+               "metrics": None}
+    torch.save(tv, os.path.join(root, "resnet18.pth"))
+    torch.save(wrapper, os.path.join(root, "released_1.pt"))
+    paths = {"trunk": os.path.join(root, "resnet18.npz"),
+             "teacher": os.path.join(root, "teacher_1.npz")}
+    for args in (["--src", os.path.join(root, "resnet18.pth"), "--dst",
+                  paths["trunk"], "--arch", "resnet18"],
+                 ["--src", os.path.join(root, "released_1.pt"), "--dst",
+                  paths["teacher"], "--arch", "pathomic", "--state_key",
+                  "ema_model_state_dict"]):
+        if convert_torch.main(args) != 0:
+            raise RuntimeError(f"convert_torch {args} failed")
+    return paths, trunk, ema.state_dict()
+
+
+def _pretrained_path(card, root, paths, trunk, n_train=64, n_test=32):
+    """Phase 32: ``init_teacher_state`` with ``--pretrained_path`` (the
+    converted torchvision-style file) and ``--init_type max`` loads the
+    trunk and its running statistics bitwise, keeps ``fc_new*`` as drawn,
+    and starts the EMA equal to the model; then ``cli.train_cv_MT`` with
+    the file on one synthetic fold, 1 epoch of 4 steps, ``--paired_conv
+    True``: B1 twice and B5 12 times per step, B2 once and B5 4 times per
+    eval forward."""
+    from multimodal_learning_tpu_torch.cli import train_cv_MT
+    from multimodal_learning_tpu_torch.config import Options
+    opt = Options(**TEACHER_RECIPE, pretrained_path=paths["trunk"],
+                  init_type="max")
+    state = _teacher_state(opt)
+    drawn = _teacher_state(opt.replace(pretrained_path=""))
+    got = state.model.state_dict()
+    n = 0
+    for k, v in trunk.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        key = "path_net." + k
+        same = torch.equal(got[key].cpu(), v)
+        if k.startswith("fc_new"):
+            # the file has no heads: they stay as drawn, and the Linears'
+            # random weights are not the source model's
+            if not torch.equal(got[key], drawn.model.state_dict()[key]):
+                raise RuntimeError(f"{key} is not as drawn")
+            if same and k.endswith("0.weight"):
+                raise RuntimeError(f"{key} is the source model's")
+        elif not same:
+            raise RuntimeError(f"{key} differs from --pretrained_path's")
+        n += 1
+    for k, v in state.ema_model.state_dict().items():
+        if not torch.equal(v, got[k]):
+            raise RuntimeError(f"the EMA's {k} differs from the model's")
+    print(f"pretrained init: {n} trunk tensors and running statistics "
+          "bitwise the file's, fc_new* as drawn, EMA equal to the model "
+          f"({card})")
+    del state, drawn
+    bs = PAPER["batch_size"]
+    steps, fwd = n_train // bs, -(-n_test // bs)
+    cfg = {**TEACHER_RECIPE, "niter_decay": 1, "paired_conv": True,
+           "synthetic_data": True, "synthetic_folds": 1,
+           "pretrained_path": paths["trunk"], "model_name": "smoke_pre"}
+    cfg.pop("n_data")
+    res, launches = _run_cli(
+        train_cv_MT.main, cfg, root,
+        {"kron_train_fwd": 2 * steps, "conv3x3": 12 * steps + 4 * fwd,
+         "kron_fwd": fwd},
+        f"pretrained train_cv_MT ({steps} steps, 1 eval of {n_test} ROIs)",
+        card)
+    if not np.isfinite(res[1]["probs"]["fuse"]).all():
+        raise RuntimeError("pretrained train_cv_MT probabilities are not "
+                           "finite")
+    return launches
+
+
+def _law_std(init_type, shape):
+    """The JAX package's law for a flax kernel shape (``variance_scaling``
+    fans: in_axis -2, out_axis -1)."""
+    rf = int(np.prod(shape)) // (shape[-2] * shape[-1])
+    fan_in, fan_out = shape[-2] * rf, shape[-1] * rf
+    return {"normal": INIT_GAIN,
+            "xavier": INIT_GAIN * (2 / (fan_in + fan_out)) ** 0.5,
+            "kaiming": (2 / fan_in) ** 0.5}[init_type]
+
+
+def _flat(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, prefix + (k,)) if isinstance(v, dict)
+                   else {prefix + (k,): v})
+    return out
+
+
+def _reinit_checks(card, paths, trunk):
+    """Phase 33a: ``init_teacher_state`` with the same file and each of
+    ``--init_type normal|xavier|kaiming|orthogonal``: the trunk is
+    clobbered, every bias is exactly 0, every kernel of at least 4096
+    elements has the std of its JAX law within 5 % (the estimate's error
+    is under 1.2 %), orthogonal kernels have Q^T Q = gain^2 I to 1e-4
+    relative to gain^2."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import flax_from_state_dict
+    for init_type in INIT_TYPES:
+        opt = Options(**TEACHER_RECIPE, pretrained_path=paths["trunk"],
+                      init_type=init_type, init_gain=INIT_GAIN)
+        state = _teacher_state(opt)
+        conv1 = state.model.path_net.conv1.weight.detach().cpu()
+        if torch.equal(conv1, trunk["conv1.weight"]):
+            raise RuntimeError(f"--init_type {init_type} kept the trunk")
+        params, _ = flax_from_state_dict(state.model.state_dict())
+        worst, n_kernels = 0.0, 0
+        for path, v in _flat(params).items():
+            if path[-1] == "bias" and np.any(v):
+                raise RuntimeError(f"{init_type}: {path} is not 0")
+            if path[-1] != "kernel" or v.ndim < 2 or v.size < 4096:
+                continue
+            n_kernels += 1
+            if init_type == "orthogonal":
+                q = v.reshape(-1, v.shape[-1]).astype(np.float64) / INIT_GAIN
+                gram = q.T @ q if q.shape[0] >= q.shape[1] else q @ q.T
+                err = float(np.abs(gram - np.eye(len(gram))).max())
+            else:
+                err = abs(float(v.std()) / _law_std(init_type, v.shape) - 1)
+            worst = max(worst, err)
+            if err > (1e-4 if init_type == "orthogonal" else 0.05):
+                raise RuntimeError(f"{init_type}: {path} {v.shape} is off "
+                                   f"its law by {err:.3e}")
+        what = ("|Q^T Q / gain^2 - I|" if init_type == "orthogonal"
+                else "relative std")
+        print(f"--init_type {init_type}: trunk clobbered, biases 0, "
+              f"{n_kernels} kernels within {worst:.3e} of the JAX law "
+              f"({what}; {card})")
+        del state
+
+
+def _optimizer_paths(card, gen, dev, root, n_train=64, n_test=32):
+    """Phase 33b: one window of 5 flagship steps (phase 7's) with
+    ``--optimizer_type adabound --lr_policy onecycle`` and with
+    ``--optimizer_type adagrad``: B1 twice per step, finite losses and
+    gradients, 0 host syncs.  Then ``cli.train_cv_MT`` at the flagship's
+    flags with ``--optimizer_type adagrad`` (1 epoch of 4 steps, one
+    synthetic fold) up to its fold checkpoint, which must carry the CRD
+    heads."""
+    from multimodal_learning_tpu_torch.cli import train_cv_MT
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.utils import load_checkpoint
+    from multimodal_learning_tpu_torch.train.steps import \
+        build_teacher_train_step
+    out = {}
+    for label, kw in (("adabound onecycle", dict(optimizer_type="adabound",
+                                                 lr_policy="onecycle")),
+                      ("adagrad", dict(optimizer_type="adagrad"))):
+        opt = _train_opt(Options, **kw)
+        state = _teacher_state(opt)
+        batch = _train_batch(opt, gen, dev)
+        step = build_teacher_train_step(opt)
+        r = _step_window(card, f"flagship step, {label}", state,
+                         lambda: step(state, batch, 0.1),
+                         {"kron_train_fwd": 2})
+        if r["syncs"] != 0:
+            raise RuntimeError(f"the {label} step synchronises the host: "
+                               f"{r['where']}")
+        out[label] = r
+        del state, step
+        torch.cuda.empty_cache()
+    bs = TRAIN_CONFIG["batch_size"]
+    steps, fwd = n_train // bs, -(-n_test // bs)
+    cfg = {**TRAIN_CONFIG, "niter_decay": 1, "synthetic_data": True,
+           "synthetic_folds": 1, "optimizer_type": "adagrad",
+           "model_name": "smoke_adagrad"}
+    cfg.pop("n_data")
+    _, out["train_cv_MT"] = _run_cli(
+        train_cv_MT.main, cfg, root,
+        {"kron_train_fwd": 2 * steps, "kron_fwd": fwd},
+        f"adagrad train_cv_MT ({steps} steps, 1 eval of {n_test} ROIs)",
+        card)
+    heads = load_checkpoint(os.path.join(
+        root, "grad_15", "smoke_adagrad", "smoke_adagrad_1.pt"))["crd_params"]
+    if sorted(heads) != ["crd_fuse_s", "crd_fuse_t"]:
+        raise RuntimeError(f"the adagrad fold checkpoint's CRD heads are "
+                           f"{sorted(heads)}")
+    print(f"adagrad train_cv_MT: fold checkpoint with its CRD heads ({card})")
+    return out
+
+
+def _released_eval(card, root, paths, ema_sd, dev, n_test=32):
+    """Phase 34: ``cli.test_cv_MT --pretrained_path '<dir>/teacher_{k}.npz'``
+    with no fold checkpoint and ``pallas_fusion="train"``: B2 once per eval
+    forward; its prediction pickle equals, bitwise, ``train.loop.evaluate``
+    of the same weights loaded by ``load_state_dict``."""
+    from multimodal_learning_tpu_torch.cli import test_cv_MT
+    from multimodal_learning_tpu_torch.cli.train_cv_MT import load_data
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.data.pipeline import (Loader,
+                                                             PathomicDataset)
+    from multimodal_learning_tpu_torch.eval import load_pred_test
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train.loop import evaluate
+    from multimodal_learning_tpu_torch.train.steps import build_eval_step
+    cfg = {**TEACHER_RECIPE, "synthetic_data": True, "synthetic_folds": 1,
+           "model_name": "released", "pretrained_path":
+           os.path.join(os.path.dirname(paths["teacher"]),
+                        "teacher_{k}.npz")}
+    cfg.pop("n_data")
+    fwd = -(-n_test // PAPER["batch_size"])
+    ckpt_dir = os.path.join(root, "grad_15", "released")
+    if os.path.exists(os.path.join(ckpt_dir, "released_1.pt")):
+        raise RuntimeError("phase 34 needs no fold checkpoint")
+    tested, launches = _run_cli(test_cv_MT.main, cfg, root,
+                                {"kron_fwd": fwd},
+                                "released test_cv_MT --pretrained_path", card)
+    dumped = load_pred_test(os.path.join(ckpt_dir,
+                                         "released_1_pred_test.pkl"))
+    opt = Options(**{k: v for k, v in cfg.items() if k != "pretrained_path"})
+    model = define_model(opt)
+    model.load_state_dict(ema_sd, strict=True)
+    data = load_data(opt)
+    loader = Loader(PathomicDataset(opt, data["cv_splits"][1], "test",
+                                    train=False), opt.batch_size,
+                    shuffle=False, drop_last=False, n_views=1)
+    try:
+        want = evaluate(opt, build_eval_step(opt), model.to(dev), loader,
+                        dev, torch.Generator(device=dev).manual_seed(
+                            opt.seed))
+    finally:
+        loader.close()
+    for name in ("fuse", "path", "omic"):
+        if not np.array_equal(dumped["probs"][name], want["probs"][name]):
+            raise RuntimeError(f"released test_cv_MT's {name} probabilities "
+                               "differ from evaluate() of the same weights")
+    if tested["fuse"] != [want["metrics_fuse"]]:
+        raise RuntimeError("released test_cv_MT's metrics differ")
+    print("released test_cv_MT: its prediction pickle equals evaluate() of "
+          "the EMA weights loaded by load_state_dict, bitwise; AUC/AP/F1/"
+          f"F1-IV {[round(float(v), 5) for v in want['metrics_fuse']]} "
+          f"({card})")
+    return launches
+
+
+def _serve_in_turns(fns, xb, ob, n=10, rounds=5):
+    """Host ms per batch of ``xb`` of each of ``fns`` (name, function) in
+    turns: ``rounds`` rounds, (a, b, c) then (c, b, a) then (a, b, c) ...,
+    windows of ``n`` forwards each ending in a synchronise.  Returns each
+    function's windows."""
+    for _, fn in fns:
+        fn(xb, ob)
+    torch.cuda.synchronize()
+    ms = {name: [] for name, _ in fns}
+    for r in range(rounds):
+        for name, fn in fns[::1 if r % 2 == 0 else -1]:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn(xb, ob)
+            torch.cuda.synchronize()
+            ms[name].append(1e3 * (time.perf_counter() - t0) / n)
+    return ms
+
+
+def _host_breakdown(fns, xb, ob, card, label, n=10, top=6):
+    """Where a serving forward's host time goes, for each of ``fns`` (name,
+    function): torch.profiler (CPU and CUDA activity) over ``n`` forwards
+    gives, per forward, the ATen ops called, the kernels launched, the
+    device ms, the self CPU ms inside ops and the wall ms outside them (the
+    Python that drives the ops: module calls, or the exported graph's
+    generated code, input checks and autocast regions); then the ops whose
+    count or self CPU time differs most between the two.  The profiler
+    slows the host, so these are compared with each other, not with the
+    windows of ``_serve_in_turns``.  The ops are compared between the
+    first two functions."""
+    from torch.profiler import ProfilerActivity, profile
+    rows, per_op = {}, {}
+    for name, fn in fns:
+        fn(xb, ob)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn(xb, ob)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / n
+        events = prof.key_averages()
+        ops = {e.key: (e.count / n, e.self_cpu_time_total / n / 1e3)
+               for e in events if e.self_cpu_time_total > 0}
+        top_level = sum(e.cpu_time_total for e in prof.events()
+                        if e.cpu_parent is None and e.device_type.name
+                        == "CPU") / n / 1e3
+        rows[name] = {
+            "aten_ops": sum(c for k, (c, _) in ops.items()
+                            if k.startswith("aten::")),
+            "launches": sum(c for k, (c, _) in ops.items()
+                            if k in ("cudaLaunchKernel", "cuLaunchKernel",
+                                     "cudaLaunchKernelExC", "cuLaunchKernelEx")),
+            "device_ms": sum(e.self_device_time_total for e in events)
+            / n / 1e3,
+            "self_cpu_ms": sum(ms for _, ms in ops.values()),
+            "outside_ops_ms": wall - top_level, "wall_ms": wall}
+        per_op[name] = ops
+        print(f"host breakdown {label}, {name}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in rows[name].items())
+              + f" per forward ({n} forwards, under the profiler; {card})")
+    (na, a), (nb, b) = list(per_op.items())[:2]
+    diff = sorted(set(a) | set(b), key=lambda k: -abs(
+        b.get(k, (0, 0))[1] - a.get(k, (0, 0))[1]))
+    for k in diff[:top]:
+        (ca, ta), (cb, tb) = a.get(k, (0, 0)), b.get(k, (0, 0))
+        print(f"  {k[:60]}: {na} x{ca:g} {ta:.4f} ms, {nb} x{cb:g} "
+              f"{tb:.4f} ms")
+    return rows
+
+
+def _dispatch_cost(card, gen, dev, n=200):
+    """The host cost of the registered ops: ``n`` calls of B2 and of B5
+    through ``torch.ops.mml`` and through their CUDA kernels' functions
+    directly, in turns, at the serving and stage-1 shapes; the host time
+    of the enqueue, synchronised once after.  Returns the op's extra host
+    us per call of each."""
+    from multimodal_learning_tpu_torch.ops import kron_fusion as kf
+    from multimodal_learning_tpu_torch.ops import paired_conv as pc
+    o1, o2, w, bias = _kron_inputs(*KRON_SHAPES[0], gen, dev)
+    x = torch.randn(16, 128, 128, 64, generator=gen).to(
+        dev, torch.bfloat16).permute(0, 3, 1, 2)
+    wc = (torch.randn(64, 64, 3, 3, generator=gen) * 0.06).to(
+        dev, torch.bfloat16)
+    pairs = {"kron_fwd": (lambda: torch.ops.mml.kron_fwd(o1, o2, w, bias),
+                          lambda: kf._kron_fwd_cuda(o1, o2, w, bias)),
+             "conv3x3": (lambda: torch.ops.mml.conv3x3(x, wc, False),
+                         lambda: pc._conv3x3_cuda(x, wc, False))}
+    out = {}
+    for name, (op, direct) in pairs.items():
+        us = {"op": [], "direct": []}
+        for which, fn in (("op", op), ("direct", direct), ("direct", direct),
+                          ("op", op)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            us[which].append(1e6 * (time.perf_counter() - t0) / n)
+            torch.cuda.synchronize()
+        out[name] = min(us["op"]) - min(us["direct"])
+        print(f"dispatch {name}: host us per call through torch.ops.mml "
+              f"{us['op'][0]:.2f} / {us['op'][1]:.2f}, direct "
+              f"{us['direct'][0]:.2f} / {us['direct'][1]:.2f} (in turns, "
+              f"{n} calls each; {card})")
+    return out
+
+
+PREDICT_CHILD = """
+import json, sys
+from multimodal_learning_tpu_torch.cli import predict
+from multimodal_learning_tpu_torch.ops import kron_fusion, paired_conv
+runs, launches = json.loads(sys.argv[1]), {}
+for artifact, out in runs:
+    kron_fusion.kron_matmul.launches = paired_conv.conv3x3.launches = 0
+    predict.main(["--artifact", artifact, "--images_dir", sys.argv[2],
+                  "--omic_csv", sys.argv[3], "--batch_size", "16",
+                  "--out", out, "--quiet"])
+    launches[artifact] = [kron_fusion.kron_matmul.launches,
+                          paired_conv.conv3x3.launches]
+print(json.dumps({"launches": launches, "models": [
+    m for m in sys.modules if m.startswith(
+        ("multimodal_learning_tpu_torch.models", "jax"))]}))
+"""
+
+
+def _exported_artifacts(card, root, ema_sd, gen, dev):
+    """Phase 35: ``cli.export_model`` of the released EMA weights to a
+    ``.pt2`` at batch 16 and with a dynamic batch, unpaired and paired;
+    ``cli.predict`` on ``N_IMAGES`` PNGs in a fresh ``python3`` that must
+    not import the port's ``models``; every output equal to the eager
+    ``make_infer_fn`` bitwise on the same batches; the dynamic artifacts
+    serve batches 1, 5 and 16 in process, bitwise the eager forward; B2
+    once and B5 4 times (paired) per forward; then ms per batch of 16,
+    artifact against eager, in turns."""
+    import pickle
+    from multimodal_learning_tpu_torch.cli import export_model, predict
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import (define_model,
+                                                      flax_from_state_dict)
+    from multimodal_learning_tpu_torch.serve import (load_exported,
+                                                     make_infer_fn)
+    from multimodal_learning_tpu_torch.utils import save_checkpoint
+    params, stats = flax_from_state_dict(ema_sd)
+    img_dir, csv = _write_inputs(root, 600, 80, gen)
+    files = sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir))
+    x_all = predict._load_images(files, TEACHER_RECIPE["input_size_path"])
+    o_all = predict._load_omic(csv, files, 80)
+    counters = _counters()
+    variants, runs, out = {}, [], {}
+    for paired in (False, True):
+        opt = Options(**TEACHER_RECIPE, paired_conv=paired,
+                      model_name="export", exp_name="grad_15")
+        model = define_model(opt)
+        model.load_state_dict(ema_sd, strict=True)
+        eager = make_infer_fn(opt, model.to(dev))
+        for batch in ("16", "dynamic"):
+            name = f"export_{batch}{'_paired' if paired else ''}"
+            save_checkpoint(os.path.join(root, "grad_15", name,
+                                         f"{name}_1.pt"),
+                            {"split": 1, "opt": opt.replace(model_name=name),
+                             "epoch": 30, "model_state_dict": params,
+                             "batch_stats": stats, "metrics": None})
+            flags = (["--export_batch", batch] if batch == "16"
+                     else ["--export_dynamic_batch", "True"])
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            (path,) = export_model.main(["--checkpoints_dir", root,
+                                         "--exp_name", "grad_15",
+                                         "--model_name", name, *flags])
+            torch.cuda.synchronize()
+            print(f"{name}: export_model in {time.perf_counter() - t0:.2f} s"
+                  f", {os.path.getsize(path) / 2 ** 20:.1f} MiB, launches "
+                  f"{ {k: c.launches for k, c in counters.items()} } "
+                  f"({card})")
+            variants[name] = (path, eager, paired, batch)
+            runs.append((path, os.path.join(root, f"{name}.pkl")))
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", PREDICT_CHILD, json.dumps(runs), img_dir,
+         csv], env=env, capture_output=True, text=True, timeout=600)
+    if child.returncode:
+        raise RuntimeError(f"cli.predict in a fresh python3 failed:\n"
+                           f"{child.stdout[-3000:]}\n{child.stderr[-3000:]}")
+    report = json.loads(child.stdout.strip().splitlines()[-1])
+    print(f"cli.predict of 4 artifacts on {N_IMAGES} images in a fresh "
+          f"python3: {time.perf_counter() - t0:.2f} s, launches (B2, B5) "
+          f"{report['launches']}, port models imported: {report['models']} "
+          f"({card})")
+    if report["models"]:
+        raise RuntimeError(f"cli.predict imported {report['models']}")
+    n_fwd = -(-N_IMAGES // 16)
+    for name, (path, eager, paired, batch) in variants.items():
+        if report["launches"][path] != [n_fwd, 4 * n_fwd if paired else 0]:
+            raise RuntimeError(f"{name}: predict launched (B2, B5) "
+                               f"{report['launches'][path]} in {n_fwd} "
+                               "forwards")
+        with open(os.path.join(root, f"{name}.pkl"), "rb") as fh:
+            got = pickle.load(fh)
+        want = predict._batched(
+            lambda xp, xo: {k: v.cpu().numpy()
+                            for k, v in eager(xp, xo).items()},
+            x_all, o_all, 16 if batch == "16" else 0, 16)
+        for k, v in want.items():
+            if not np.array_equal(got[k], v):
+                raise RuntimeError(f"{name}: predict's {k} differs from "
+                                   "the eager forward")
+        infer = load_exported(path, dev)
+        for n in ((16,) if batch == "16" else (1, 5, 16)):
+            xb = torch.from_numpy(x_all[:n]).to(dev)
+            ob = torch.from_numpy(o_all[:n]).to(dev)
+            for c in counters.values():
+                c.launches = 0
+            got = infer(xb, ob)
+            torch.cuda.synchronize()
+            launched = {k: c.launches for k, c in counters.items()}
+            want_l = {k: 0 for k in counters}
+            want_l.update(kron_fwd=1, conv3x3=4 if paired else 0)
+            if launched != want_l:
+                raise RuntimeError(f"{name} at batch {n} launched "
+                                   f"{launched}, expected {want_l}")
+            ref = eager(xb, ob)
+            if sorted(got) != sorted(ref) or not all(
+                    torch.equal(got[k], ref[k]) for k in ref):
+                raise RuntimeError(f"{name} at batch {n} differs from the "
+                                   "eager forward")
+        if batch == "16":
+            xb = torch.from_numpy(x_all[:16]).to(dev)
+            ob = torch.from_numpy(o_all[:16]).to(dev)
+            # ExportedProgram.module(), which load_exported does not use:
+            # the cost it avoids
+            module = torch.export.load(path).module()
+
+            def via_module(xp, xo, module=module):
+                with torch.inference_mode():
+                    return module(xp, xo)
+
+            ref = via_module(xb, ob)
+            if not all(torch.equal(ref[k], got[k]) for k in got):
+                raise RuntimeError(f"{name}: module() differs")
+            fns = (("artifact", infer), ("eager", eager),
+                   ("module()", via_module))
+            ms = _serve_in_turns(fns, xb, ob, n=20, rounds=10)
+            out[name] = {k: float(np.median(v)) for k, v in ms.items()}
+            print(f"timing {name}: ms per batch of 16 in 10 rounds of "
+                  "turns, " + "; ".join(
+                      f"{k} " + " / ".join(f"{v:.3f}" for v in ms[k])
+                      for k in ms) + "; medians " + ", ".join(
+                          f"{k} {v:.3f}" for k, v in out[name].items())
+                  + f" (bf16, 512^2, device-resident input; {card})")
+            for other in ("eager", "module()"):
+                wins = sum(a < b for a, b in zip(ms["artifact"], ms[other]))
+                out[name][f"wins_vs_{other}"] = wins
+                print(f"timing {name}: the artifact's window is the faster "
+                      f"in {wins} of {len(ms[other])} rounds against "
+                      f"{other} ({card})")
+            out[name]["breakdown"] = _host_breakdown(fns, xb, ob, card,
+                                                     name)
+    print("exported artifacts: predict and the in-process serves equal the "
+          "eager forward bitwise; B2 once and B5 4 times (paired) per "
+          f"forward ({card})")
+    out["dispatch_us"] = _dispatch_cost(card, gen, dev)
+    out["predict_launches"] = {
+        "kron_fwd": sum(v[0] for v in report["launches"].values()),
+        "conv3x3": sum(v[1] for v in report["launches"].values())}
+    return out
+
+
 def _write_inputs(root, size, d_omic, gen):
     from PIL import Image
     img_dir = os.path.join(root, "rois")
@@ -2748,6 +3325,38 @@ def main() -> int:
                         *((f"{f} teacher", fusions[f])
                           for f in NEW_FUSIONS)]) + f"; mmdynamics serving "
           f"{dyn_chain['serve_ms']:.3f} ms per batch of 16 ({card})")
+    # 32. pretrained training: init_teacher_state and train_cv_MT
+    stamp(32)
+    released_root = tempfile.TemporaryDirectory()
+    paths, trunk, ema_sd = _released_files(released_root.name, gen)
+    pre_launches = _pretrained_path(card, released_root.name, paths, trunk)
+    torch.cuda.empty_cache()
+    # 33. --init_type on the same file, then AdaBound/onecycle and Adagrad
+    stamp(33)
+    _reinit_checks(card, paths, trunk)
+    optims = _optimizer_paths(card, gen, dev, released_root.name)
+    adagrad_cli = optims.pop("train_cv_MT")
+    # 34. evaluating a released checkpoint with no fold checkpoint
+    stamp(34)
+    released_launches = _released_eval(card, released_root.name, paths,
+                                       ema_sd, dev)
+    torch.cuda.empty_cache()
+    # 35. the torch.export artifact: export_model, predict in a fresh
+    # python3, the in-process serves and their timing
+    stamp(35)
+    served = _exported_artifacts(card, released_root.name, ema_sd, gen, dev)
+    released_root.cleanup()
+    print("A18/A8 steps per step (bf16, 512^2, batch 16): " + "; ".join(
+        f"{name}: host {r['host_ms']:.3f} ms, kernels "
+        f"{r.get('kernel_ms', float('nan')):.3f} ms, busy "
+        f"{100 * r.get('busy', float('nan')):.1f}%, {r['syncs']:g} syncs"
+        for name, r in optims.items()) + "; serving ms per batch of 16, "
+          "artifact / eager: " + ", ".join(
+              f"{name} {r['artifact']:.3f} / {r['eager']:.3f}"
+              for name, r in served.items() if name.startswith("export_"))
+          + "; torch.ops dispatch adds " + ", ".join(
+              f"{k} {v:.2f} us" for k, v in served["dispatch_us"].items())
+          + f" per launch ({card})")
     print("A15 steps per step (bf16, 512^2, batch 16): " + "; ".join(
         f"{name}: host {r['host_ms']:.3f} ms, kernels "
         f"{r.get('kernel_ms', float('nan')):.3f} ms, busy "
@@ -2774,7 +3383,12 @@ def main() -> int:
             "CLAT student step, teacher_bn running (5 steps)":
                 clat["running"]["launches"]["kron_fwd"],
             "MIA-2023 CLI chain": sum(
-                c["launches"]["kron_fwd"] for c in clat_chain.values())},
+                c["launches"]["kron_fwd"] for c in clat_chain.values()),
+            "adagrad train_cv_MT eval": adagrad_cli["kron_fwd"],
+            "released test_cv_MT --pretrained_path": released_launches[
+                "kron_fwd"],
+            "exported artifacts, predict in a fresh python3 (4 x 2 "
+            "forwards)": served["predict_launches"]["kron_fwd"]},
         "kron_train_fwd": {
             "teacher train step (20 steps)": b1_launches,
             "student step, teacher_bn batch (20 steps)":
@@ -2797,7 +3411,11 @@ def main() -> int:
                 clat["neighbors"]["launches"]["kron_train_fwd"],
             "MIA-2023 CLI chain": sum(
                 c["launches"]["kron_train_fwd"]
-                for c in clat_chain.values())},
+                for c in clat_chain.values()),
+            "pretrained train_cv_MT": pre_launches["kron_train_fwd"],
+            "adabound onecycle and adagrad steps (2 x 5 steps)": sum(
+                r["launches"]["kron_train_fwd"] for r in optims.values()),
+            "adagrad train_cv_MT": adagrad_cli["kron_train_fwd"]},
         "kron_bwd_dw": {},
         "kron_bwd_dvec": {
             "saliency call": sal_launches["kron_bwd_dvec"],
@@ -2821,7 +3439,10 @@ def main() -> int:
                 dyn[True]["launches"]["conv3x3"],
             "mmdynamics CLI chain (train_cv_MT + test_cv_MT)":
                 dyn_chain["train_cv_MT"]["conv3x3"]
-                + dyn_chain["test_cv_MT"]["conv3x3"]},
+                + dyn_chain["test_cv_MT"]["conv3x3"],
+            "pretrained train_cv_MT": pre_launches["conv3x3"],
+            "exported paired artifacts, predict in a fresh python3 (2 x 2 "
+            "forwards)": served["predict_launches"]["conv3x3"]},
     }
 
     kernels = [{
@@ -2889,7 +3510,7 @@ def main() -> int:
         "fp32_max_abs_err": conv_errs[torch.float32]})
     for k in kernels:
         k["launched_by"] = launched_by[k["name"]]
-    print(f"[chip_smoke] phases 1-31 in {time.perf_counter() - t_run:.1f} s "
+    print(f"[chip_smoke] phases 1-35 in {time.perf_counter() - t_run:.1f} s "
           f"({card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,10 @@ drivers, the masked teacher's saliency masks, and the MIA-2022 flow: the
 MICCAI/DSCD students and the M3LR t-SVD teacher):
 
 - ``config``    the ``Options`` flag surface (own copy)
-- ``models``    ResNet18 (with ``--paired_conv``), MaxNet, BilinearFusion,
-                PathomicModel, and the weight bridge to and from the JAX
-                package's flax trees
+- ``models``    ResNet18 (with ``--paired_conv``), ResNet34/50, MaxNet,
+                BilinearFusion, PathomicModel, the weight bridge to and
+                from the JAX package's flax trees, checkpoint import
+                (``--pretrained_path``) and ``--init_type``
 - ``ops``       the Kronecker-fusion kernels: the eval and the masked train
                 forward (one kernel, ``csrc/kron_fusion.cu``), the eval
                 backward (``csrc/kron_bwd.cu``); the stage-1 3x3
@@ -29,15 +30,17 @@ MICCAI/DSCD students and the M3LR t-SVD teacher):
                 parameter gradients
 - ``lowrank``   the M3LR t-SVT operator and its view adjacencies
 - ``train``     the teacher's train and eval steps (t-SVD included), the
-                student's step and fold loop, the teacher's fold loop, Adam
-                and the LR schedules (plateau included), EMA, and the
+                student's step and fold loop, the teacher's fold loop, Adam,
+                AdaBound, Adagrad and the LR schedules (plateau and
+                onecycle included), EMA, and the
                 train-state bridge to the JAX package
 - ``eval``      grading and survival metrics (numpy/scipy), prediction dumps
 - ``utils``     fold checkpoints in the JAX package's pickle layout,
                 train-state snapshots, the JSONL metrics log
-- ``serve``     the eval forward and its ``torch.save`` artifact
+- ``serve``     the eval forward and its ``torch.export`` artifact
 - ``cli``       ``train_cv_MT``, ``test_cv_MT``, ``train_cv_path_multi_MT``,
-                ``test_cv_path``, ``export_model``, ``predict``
+                ``test_cv_path``, ``export_model``, ``predict``,
+                ``convert_torch``
 """
 
 __version__ = "0.4.0"

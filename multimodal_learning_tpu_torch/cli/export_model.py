@@ -1,10 +1,13 @@
 """Export trained fold checkpoints as serving artifacts.
 
 For every fold checkpoint of ``--model_name`` (in the JAX package's pickle
-layout, written by either package) this writes ``<model>_<k>.serve.pt`` (the
-port's ``state_dict`` plus the manifest) and its ``.json`` manifest with the
-calling convention, after serving one batch of zeros on the device to check
-the weights.  Serve it with ``cli.predict``.
+layout, written by either package) this writes ``<model>_<k>.pt2``, the
+``torch.export`` program of the serving forward on this device (B2 and,
+under ``--paired_conv``, B5 kept as registered ops), and its ``.json``
+manifest with the calling convention, after serving one batch of zeros
+through the exported program to check it.  ``--export_batch N`` fixes the
+batch; ``--export_dynamic_batch True`` exports any batch size.  Serve it
+with ``cli.predict``, on the device type it was exported on.
 
     python -m multimodal_learning_tpu_torch.cli.export_model \
         --model_name stage1_pathomic_teacher --mode pathomic --task grad \
@@ -48,8 +51,8 @@ def export_fold(opt, ckpt_path: str, out_path: str, device) -> str:
         ckpt["model_state_dict"], ckpt.get("batch_stats", {})), strict=True)
     bs = ("dynamic" if opt.export_dynamic_batch
           else (opt.export_batch or opt.batch_size))
-    state, outputs = export_infer(opt, model.to(device), bs)
-    write_artifact(out_path, state, manifest(opt, bs, outputs))
+    exported, outputs = export_infer(opt, model.to(device), bs)
+    write_artifact(out_path, exported, manifest(opt, bs, outputs, device))
     return out_path
 
 
@@ -73,7 +76,7 @@ def main(argv=None):
             f"cli.train_cv_MT (or friends) first")
     written = []
     for k, p in sorted(paths.items()):
-        out = os.path.join(ckpt_dir, f"{opt.model_name}_{k}.serve.pt")
+        out = os.path.join(ckpt_dir, f"{opt.model_name}_{k}.pt2")
         written.append(export_fold(opt, p, out, device))
         print("exported", written[-1])
     return written

@@ -2,11 +2,13 @@
 
 Port of ``multimodal_learning_tpu/cli/predict.py`` with the same flags:
 train -> export (``cli.export_model``) -> predict (this).  ``--artifact``
-takes the port's ``<model>_<k>.serve.pt``; its ``.json`` manifest carries
-the calling convention.
+takes the port's ``<model>_<k>.pt2`` (a ``torch.export`` program); its
+``.json`` manifest carries the calling convention and the platform it was
+exported on.  Loading it needs torch and the port's ``ops`` modules, not
+its model code.
 
     python -m multimodal_learning_tpu_torch.cli.predict \
-        --artifact ckpt/grad_15/vt/vt_1.serve.pt \
+        --artifact ckpt/grad_15/vt/vt_1.pt2 \
         --images_dir rois/ --omic_csv omic.csv --out preds.pkl
 
 Images are decoded with PIL and deterministically CENTER-cropped/padded to
@@ -117,9 +119,9 @@ def _batched(fn, x_path, x_omic, fixed_b, chunk):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        "predict", description="serve an exported .serve.pt artifact")
+        "predict", description="serve an exported .pt2 artifact")
     ap.add_argument("--artifact", required=True,
-                    help="path to the .serve.pt artifact (manifest at "
+                    help="path to the .pt2 artifact (manifest at "
                          "+'.json')")
     ap.add_argument("--images", nargs="*", default=None,
                     help="ROI image files (jpg/png), order defines rows")

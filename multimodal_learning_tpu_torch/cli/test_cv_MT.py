@@ -8,9 +8,16 @@ branch metrics.
     python -m multimodal_learning_tpu_torch.cli.test_cv_MT --task grad \
         --mode pathomic --model_name stage1_pathomic_teacher
 
-Runs on CUDA; ``MML_PLATFORM=cpu`` runs it on the CPU.  Evaluating a
-released reference checkpoint (``--pretrained_path`` without a fold
-checkpoint) is not ported yet (ROADMAP A18).
+Without a fold checkpoint, ``--pretrained_path`` evaluates weights
+converted from the reference's own ``torch.save`` dict
+(``cli.convert_torch --arch pathomic``); a ``{k}`` in it names one file
+per fold:
+
+    python -m multimodal_learning_tpu_torch.cli.test_cv_MT --task grad \
+        --mode pathomic --model_name released \
+        --pretrained_path 'released/teacher_{k}.npz'
+
+Runs on CUDA; ``MML_PLATFORM=cpu`` runs it on the CPU.
 """
 from __future__ import annotations
 
@@ -25,11 +32,26 @@ from ..data.pipeline import Loader, PathomicDataset
 from ..eval.analysis import save_pred_test
 from ..models.factory import define_model
 from ..models.import_flax import state_dict_from_flax
+from ..models.import_torch import apply_pretrained
 from ..train.loop import evaluate
 from ..train.steps import build_eval_step
 from ..utils.checkpoint import load_checkpoint
 from ._platform import select_device
 from .train_cv_MT import load_data
+
+
+def _pretrained_fold_model(opt, k):
+    """The released-checkpoint path (JAX ``cli/test_cv_MT.py:27-53``): a
+    model drawn from ``opt.seed`` with ``--pretrained_path`` (its ``{k}``
+    filled in) merged in.  Only a full pathomic file replaces every leaf;
+    the reference always loads its fold checkpoint
+    (``test_cv_MT.py:52-65``)."""
+    model = define_model(opt, generator=torch.Generator().manual_seed(
+        opt.seed))
+    return apply_pretrained(
+        opt.replace(pretrained_path=opt.pretrained_path.replace("{k}",
+                                                                str(k))),
+        model, log=print)
 
 
 def run_fold(opt, data, k, use_best=True, device="cuda"):
@@ -39,13 +61,13 @@ def run_fold(opt, data, k, use_best=True, device="cuda"):
     if not os.path.exists(path):
         path = os.path.join(ckpt_dir, f"{opt.model_name}_{k}.pt")
     if not os.path.exists(path) and getattr(opt, "pretrained_path", ""):
-        raise NotImplementedError(
-            "--pretrained_path without a fold checkpoint (evaluating a "
-            "released reference checkpoint) is not ported yet: ROADMAP A18")
-    ckpt = load_checkpoint(path)
-    model = define_model(opt)
-    model.load_state_dict(state_dict_from_flax(
-        ckpt["model_state_dict"], ckpt.get("batch_stats", {})), strict=True)
+        model = _pretrained_fold_model(opt, k)
+    else:
+        ckpt = load_checkpoint(path)
+        model = define_model(opt)
+        model.load_state_dict(state_dict_from_flax(
+            ckpt["model_state_dict"], ckpt.get("batch_stats", {})),
+            strict=True)
     model.to(device)
     split = data["cv_splits"][k]
     loader = Loader(PathomicDataset(opt, split, "test", train=False),
@@ -57,7 +79,9 @@ def run_fold(opt, data, k, use_best=True, device="cuda"):
     finally:
         loader.close()
     # dump predictions for offline patient-level analysis
-    # (reference pickles pred_test per fold, train_cv_MT.py:134-135)
+    # (reference pickles pred_test per fold, train_cv_MT.py:134-135); a
+    # released checkpoint may have no fold directory yet
+    os.makedirs(ckpt_dir, exist_ok=True)
     save_pred_test(os.path.join(ckpt_dir, f"{opt.model_name}_{k}_pred_test.pkl"),
                    {"pred_test": res["pred_test"], "probs": res["probs"],
                     "gt": res["gt"],

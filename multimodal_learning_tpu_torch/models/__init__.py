@@ -7,5 +7,5 @@ from .maxnet import MaxNet, MaxNetDecoder
 from .mmdynamic import MMDynamic
 from .pathomic import (PathomicDynamicsModel, PathomicModel, PathomicOutput,
                        make_fusion)
-from .resnet import ResNet, ResNet18
+from .resnet import Bottleneck, ResNet, ResNet18, ResNet34, ResNet50
 from .resnet_decoder import ResnetDecoder

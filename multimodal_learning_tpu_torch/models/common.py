@@ -15,8 +15,9 @@ bits.  Tests carry weights across with ``models/import_flax.py``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -121,6 +122,124 @@ def apply_act(act_type: str, hazard: torch.Tensor) -> torch.Tensor:
     if act_type == "none":
         return hazard
     raise NotImplementedError(f"activation [{act_type}] is not found")
+
+
+INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
+KEEP_INIT = ("max", "none", "normal_default")
+
+
+def reinit_generator(seed: int) -> torch.Generator:
+    """The re-initialisation's own CPU stream, apart from the one the
+    model, the CRD heads and the banks draw from (the JAX package splits
+    ``k_reinit`` off its init key, ``train/steps.py:150``)."""
+    entropy = np.random.SeedSequence((seed, 1)).generate_state(1)[0]
+    return torch.Generator().manual_seed(int(entropy))
+
+
+def _fans(shape):
+    """flax ``variance_scaling`` fans: ``in_axis=-2``, ``out_axis=-1``, the
+    other axes the receptive field.  On the bilinear ``linear_z`` kernel
+    [out, in1, in2] that is fan_in = out*in1, fan_out = out*in2, unlike
+    torch's own ``nn.init`` law on the same tensor."""
+    rf = math.prod(shape) // (shape[-2] * shape[-1])
+    return shape[-2] * rf, shape[-1] * rf
+
+
+def _truncated_normal(shape, gen) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2] (``jax.random.truncated_normal``)
+    by the inverse CDF, in float64."""
+    lo, hi = (0.5 * (1 + math.erf(v / math.sqrt(2))) for v in (-2.0, 2.0))
+    u = lo + (hi - lo) * torch.rand(shape, generator=gen, dtype=torch.float64)
+    return math.sqrt(2) * torch.special.erfinv(2 * u - 1)
+
+
+def _orthogonal(shape, gen) -> torch.Tensor:
+    """``jax.nn.initializers.orthogonal(column_axis=-1)``: the kernel as
+    [prod(shape[:-1]), shape[-1]] with orthonormal columns (rows when it is
+    wide), from the sign-fixed QR of a normal draw, in float64."""
+    n_cols = shape[-1]
+    n_rows = math.prod(shape) // n_cols
+    a = torch.randn((max(n_rows, n_cols), min(n_rows, n_cols)),
+                    generator=gen, dtype=torch.float64)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    if n_rows < n_cols:
+        q = q.T
+    return q.reshape(shape)
+
+
+def _draw_kernel(shape, init_type: str, gain: float, gen) -> np.ndarray:
+    if init_type == "normal":
+        w = gain * torch.randn(shape, generator=gen, dtype=torch.float64)
+    elif init_type == "xavier":
+        # xavier_normal is variance_scaling(1, fan_avg, truncated_normal)
+        fan_in, fan_out = _fans(shape)
+        std = math.sqrt(2.0 / (fan_in + fan_out)) / .87962566103423978
+        w = gain * std * _truncated_normal(shape, gen)
+    elif init_type == "kaiming":
+        # torch kaiming_normal_(a=0, mode='fan_in'); no gain in the reference
+        w = math.sqrt(2.0 / _fans(shape)[0]) * torch.randn(
+            shape, generator=gen, dtype=torch.float64)
+    else:
+        w = gain * _orthogonal(shape, gen)
+    return w.numpy().astype(np.float32)
+
+
+def reinit_tree(params: Dict, init_type: str, init_gain: float,
+                gen: torch.Generator) -> Dict:
+    """The JAX ``apply_init_type`` rule on a flax param tree (numpy leaves),
+    drawing from ``gen`` in sorted-key order: kernels of ndim >= 2 redrawn,
+    their biases 0; a BatchNorm (a node with a ``scale`` leaf) scale
+    N(1, gain), bias 0.  Leaves of any other name (the LMF ``factor*``,
+    ``fusion_weights``, ``fusion_bias``) are kept."""
+    is_bn = "scale" in params and not isinstance(params["scale"], dict)
+    out = {}
+    for name in sorted(params):
+        leaf = params[name]
+        if isinstance(leaf, dict):
+            out[name] = reinit_tree(leaf, init_type, init_gain, gen)
+            continue
+        leaf = np.asarray(leaf)
+        if is_bn and name == "scale":
+            leaf = (1.0 + init_gain * torch.randn(
+                leaf.shape, generator=gen, dtype=torch.float64)
+                ).numpy().astype(leaf.dtype)
+        elif name == "bias":
+            leaf = np.zeros_like(leaf)
+        elif name == "kernel" and leaf.ndim >= 2 and not is_bn:
+            leaf = _draw_kernel(leaf.shape, init_type, init_gain,
+                                gen).astype(leaf.dtype)
+        out[name] = leaf
+    return out
+
+
+@torch.no_grad()
+def apply_init_type(model: nn.Module, init_type: str, init_gain: float,
+                    generator: torch.Generator) -> nn.Module:
+    """Post-init re-initialisation of ``model`` in place, the reference's
+    ``init_weights`` (``utils.py:205-233``, applied by ``init_net`` from
+    ``define_net``) as the JAX package's ``apply_init_type`` has it:
+
+    - Conv/Linear/Bilinear kernels: normal(0, gain) | xavier_normal x gain |
+      kaiming_normal(fan_in) | orthogonal x gain; their biases -> 0
+    - BatchNorm scale: N(1, gain), bias -> 0
+
+    ``max`` (the recipes' default), ``none`` and ``normal_default`` leave
+    the model as built.  The rule runs on the model's flax tree
+    (``import_flax``), so leaves are picked by flax name and fans computed
+    on flax shapes, as in JAX; the draws agree with JAX's in law, not in
+    bits."""
+    if init_type in KEEP_INIT:
+        return model
+    if init_type not in INIT_TYPES:
+        raise NotImplementedError(
+            f"initialization method [{init_type}] is not implemented")
+    from .import_flax import flax_from_state_dict, state_dict_from_flax
+    params, stats = flax_from_state_dict(model.state_dict())
+    model.load_state_dict(state_dict_from_flax(
+        reinit_tree(params, init_type, init_gain, generator), stats),
+        strict=True)
+    return model
 
 
 def autocast(x: torch.Tensor, dtype: torch.dtype):

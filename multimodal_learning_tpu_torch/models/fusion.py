@@ -50,7 +50,11 @@ class Bilinear(nn.Module):
     ``generator``.  It contracts with one einsum because ``torch.bilinear``
     on CUDA launches one small GEMM per output feature: at paper width, 256
     launches and 13 ms of device time per serving forward on an H100, where
-    the whole forward otherwise takes 2.8 ms (PERF.md)."""
+    the whole forward otherwise takes 2.8 ms (PERF.md).  The einsum is
+    written as the two pairwise contractions that opt_einsum picks for it
+    (the outer product x1 x2^T, then against W), so that the order does not
+    depend on sizes a ``torch.export`` with a dynamic batch leaves
+    symbolic."""
 
     def __init__(self, in1: int, in2: int, out: int,
                  generator: Optional[torch.Generator] = None):
@@ -63,7 +67,8 @@ class Bilinear(nn.Module):
             self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x1, x2):
-        return torch.einsum("bi,kij,bj->bk", x1, self.weight, x2) + self.bias
+        outer = torch.einsum("bi,bj->bij", x1, x2)
+        return torch.einsum("bij,kij->bk", outer, self.weight) + self.bias
 
 
 def _dense_max(fan_in, width, generator):
@@ -289,8 +294,9 @@ class TrilinearFusion(_GatedFusion):
         o1 = _append_one(unit1(vec1, vec3, (0, 1)))
         o2 = _append_one(unit2(vec2, other2, (0, 1)))
         o3 = _append_one(unit3(vec3, vec1, (1, 0)))
-        o123 = torch.einsum("bi,bj,bk->bijk", o1, o2, o3).reshape(
-            o1.shape[0], -1)
+        # pairwise, so that a dynamic batch in torch.export contracts in
+        # the same order as eager
+        o123 = _kron(_kron(o1, o2), o3)
         out = self.drop(torch.relu(self.encoder1(self.drop(o123))))
         if self.skip:
             out = torch.cat([out, o1, o2, o3], dim=1)

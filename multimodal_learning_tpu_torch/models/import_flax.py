@@ -10,7 +10,8 @@ mapping consumes (BatchNorm's ``num_batches_tracked`` aside, which flax
 does not keep), so a weight is never dropped silently.
 
 Key maps (reference module names where the reference has the module):
-- ResNet trunk ``conv1/bn1/layerX.Y.*`` incl. ``downsample.{0,1}``; heads
+- ResNet trunk ``conv1/bn1/layerX.Y.*`` incl. ``downsample.{0,1}`` (and a
+  Bottleneck's ``conv3/bn3``), any stage sizes; heads
   ``fc_new1.0`` (Linear) / ``fc_new1.1`` (BN1d) / ``fc_new2``
 - MaxNet ``encoder.K.0`` (Linear) / ``classifier.0``
 - the gated fusions: BilinearFusion (pofusion) and PolynomialFusion
@@ -116,6 +117,9 @@ def _resnet_to(sd, p, s, prefix=""):
         _put_bn(sd, dst + "bn1", blk["bn1"], bst["bn1"])
         _put_conv(sd, dst + "conv2", blk["conv2"])
         _put_bn(sd, dst + "bn2", blk["bn2"], bst["bn2"])
+        if "conv3" in blk:   # a Bottleneck
+            _put_conv(sd, dst + "conv3", blk["conv3"])
+            _put_bn(sd, dst + "bn3", blk["bn3"], bst["bn3"])
         if "ds_conv" in blk:
             _put_conv(sd, dst + "downsample.0", blk["ds_conv"])
             _put_bn(sd, dst + "downsample.1", blk["ds_bn"], bst["ds_bn"])
@@ -268,13 +272,17 @@ def _resnet_from(sd, prefix=""):
         blk["bn1"], bstats["bn1"] = _bn(sd, src + "bn1")
         blk["conv2"] = {"kernel": _conv(sd, src + "conv2.weight")}
         blk["bn2"], bstats["bn2"] = _bn(sd, src + "bn2")
+        if src + "conv3.weight" in sd:   # a Bottleneck
+            blk["conv3"] = {"kernel": _conv(sd, src + "conv3.weight")}
+            blk["bn3"], bstats["bn3"] = _bn(sd, src + "bn3")
         if src + "downsample.0.weight" in sd:
             blk["ds_conv"] = {"kernel": _conv(sd, src + "downsample.0.weight")}
             blk["ds_bn"], bstats["ds_bn"] = _bn(sd, src + "downsample.1")
         params[f"layer{i}_{j}"], stats[f"layer{i}_{j}"] = blk, bstats
-    params["fc_new1"] = _linear(sd, p + "fc_new1.0")
-    params["fc_new1_bn"], stats["fc_new1_bn"] = _bn(sd, p + "fc_new1.1")
-    params["fc_new2"] = _linear(sd, p + "fc_new2")
+    if p + "fc_new1.0.weight" in sd:   # a trunk-only file has no heads
+        params["fc_new1"] = _linear(sd, p + "fc_new1.0")
+        params["fc_new1_bn"], stats["fc_new1_bn"] = _bn(sd, p + "fc_new1.1")
+        params["fc_new2"] = _linear(sd, p + "fc_new2")
     return params, stats
 
 

@@ -18,6 +18,11 @@ the card) by the JAX rule (``resnet.py:99-111``): ``conv1`` at stride 1
 and ``conv2`` of every block with 64 planes whose input width is even.  The
 parameters and their ``state_dict`` keys do not change.  The stem stays the
 ordinary convolution (see that module).
+
+``ResNet34`` (BasicBlock, stages (3, 4, 6, 3), ``paired`` as ResNet18) and
+``ResNet50`` (``Bottleneck``, expansion 4, no ``paired``) are
+library-level, as in the JAX package, whose ``define_model`` builds
+neither.
 """
 from __future__ import annotations
 
@@ -64,12 +69,43 @@ class BasicBlock(nn.Module):
         return torch.relu(y + identity)
 
 
+class Bottleneck(nn.Module):
+    """1x1 / 3x3 / 1x1 bottleneck, ResNet v1.5 stride placement (the 3x3
+    strides; ``resnets.py:77-123``).  ``paired`` is accepted and ignored,
+    as in the JAX package."""
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 generator: Optional[torch.Generator] = None,
+                 paired: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        out = planes * self.expansion
+        self.conv1 = _conv(inplanes, planes, 1, 1, 0, generator)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = _conv(planes, planes, 3, stride, 1, generator)
+        self.bn2 = BatchNorm2d(planes)
+        self.conv3 = _conv(planes, out, 1, 1, 0, generator)
+        self.bn3 = BatchNorm2d(out)
+        self.downsample = None
+        if stride != 1 or inplanes != out:
+            self.downsample = nn.Sequential(
+                _conv(inplanes, out, 1, stride, 0, generator),
+                BatchNorm2d(out))
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return torch.relu(y + identity)
+
+
 class ResNet(nn.Module):
     """ResNet trunk + pathomic heads.
 
     ``forward(x)`` with ``x: [B, H, W, 3]`` returns
     ``(feat_f3, features, hazard, pred)``, all float32:
-      feat_f3  [B, 256]       layer-3 GAP feature (``resnets.py:234``)
+      feat_f3  [B, 256*exp]   layer-3 GAP feature (``resnets.py:234``)
       features [B, path_dim]  post-``fc_new1`` feature
       hazard   [B, classes]   raw logits
       pred     [B, classes]   activated output (log-probs for grading)
@@ -79,7 +115,7 @@ class ResNet(nn.Module):
                  path_dim: int = 32, num_classes: int = 3,
                  act_type: str = "LSM", dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
-                 paired: bool = False):
+                 paired: bool = False, block=BasicBlock):
         super().__init__()
         self.act_type = act_type
         self.dtype = dtype
@@ -92,9 +128,9 @@ class ResNet(nn.Module):
             blocks = []
             for j in range(n_blocks):
                 stride = 2 if (i > 0 and j == 0) else 1
-                blocks.append(BasicBlock(inplanes, planes, stride, generator,
-                                         paired, dtype))
-                inplanes = planes
+                blocks.append(block(inplanes, planes, stride, generator,
+                                    paired, dtype))
+                inplanes = planes * getattr(block, "expansion", 1)
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
         self.fc_new1 = nn.Sequential(
             init_linear_(nn.Linear(inplanes, path_dim), False, generator),
@@ -123,3 +159,20 @@ def ResNet18(path_dim=32, num_classes=3, act_type="LSM",
     return ResNet((2, 2, 2, 2), path_dim=path_dim, num_classes=num_classes,
                   act_type=act_type, dtype=dtype, generator=generator,
                   paired=paired)
+
+
+def ResNet34(path_dim=32, num_classes=3, act_type="LSM",
+             dtype=torch.float32, generator=None, paired=False):
+    """JAX ``models/resnet.py:ResNet34``; library-level."""
+    return ResNet((3, 4, 6, 3), path_dim=path_dim, num_classes=num_classes,
+                  act_type=act_type, dtype=dtype, generator=generator,
+                  paired=paired)
+
+
+def ResNet50(path_dim=32, num_classes=3, act_type="LSM",
+             dtype=torch.float32, generator=None):
+    """JAX ``models/resnet.py:ResNet50``; library-level, no ``paired`` (its
+    3x3 sits mid-bottleneck, as in the JAX package)."""
+    return ResNet((3, 4, 6, 3), path_dim=path_dim, num_classes=num_classes,
+                  act_type=act_type, dtype=dtype, generator=generator,
+                  block=Bottleneck)

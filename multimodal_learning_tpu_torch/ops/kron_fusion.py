@@ -9,7 +9,10 @@ kernel of ``multimodal_learning_tpu/ops/kron_fusion.py``:
 
 - ``kron_matmul`` (``csrc/kron_fusion.cu:kron_fwd``, ``_fwd_kernel``): the eval
   contraction ``y[b, k] = sum_i o1[b, i] sum_j o2[b, j] W[k, i*d2 + j] +
-  bias[k]``, differentiable: its backward runs ``kron_bwd_dw``
+  bias[k]``, launched through the registered op ``mml::kron_fwd`` (a CUDA
+  kernel, a CPU kernel that runs the plain version, and a fake), so that a
+  ``torch.export`` of the serving forward keeps B2; differentiable: its
+  backward runs ``kron_bwd_dw``
   (``csrc/kron_bwd.cu``, ``_bwd_dw_kernel``) for the weight and
   ``kron_bwd_dvec`` (``_bwd_dvec_kernel``) for o1 and o2, as the JAX
   package's custom VJP does; ``db = g.sum(0)`` stays a torch op.
@@ -295,14 +298,42 @@ def kron_bwd_dvec(o1: torch.Tensor, o2: torch.Tensor, weight: torch.Tensor,
     return do1, do2
 
 
+@torch.library.custom_op("mml::kron_fwd", mutates_args=(),
+                         device_types="cpu")
+def kron_fwd_op(o1: torch.Tensor, o2: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """B2 as a registered op, so that ``torch.export`` captures the eval
+    contraction, which it cannot trace into ctypes: on the CPU its plain
+    version."""
+    return kron_matmul_plain(o1, o2, weight, bias)
+
+
+@kron_fwd_op.register_kernel("cuda")
+def _kron_fwd_cuda(o1, o2, weight, bias):
+    # checked here, on real tensors, and not in the wrapper, whose checks
+    # would guard on the symbolic batch of a dynamic export; launches B2
+    # and counts it (``_fwd_launch``); the output is a fresh tensor, never
+    # the cached partials scratch
+    _check("kron_matmul", {"o1": o1, "o2": o2, "weight": weight,
+                           "bias": bias},
+           _fits(o1, o2, weight, bias), "[B, d1], [B, d2], [K, d1*d2], [K]")
+    return _fwd_launch(o1, o2, weight, bias)
+
+
+@kron_fwd_op.register_fake
+def _kron_fwd_fake(o1, o2, weight, bias):
+    return o1.new_empty((o1.shape[0], weight.shape[0]))
+
+
 class _KronMatmul(torch.autograd.Function):
-    """``kron_matmul`` on CUDA: forward B2, backward B3 (dW) and B4 (do1,
-    do2), each run only where its inputs need a gradient."""
+    """``kron_matmul`` on CUDA: forward B2 (through the registered op
+    ``mml::kron_fwd``), backward B3 (dW) and B4 (do1, do2), each run only
+    where its inputs need a gradient."""
 
     @staticmethod
     def forward(ctx, o1, o2, weight, bias):
         ctx.save_for_backward(o1, o2, weight)
-        return _fwd_launch(o1, o2, weight, bias)
+        return torch.ops.mml.kron_fwd(o1, o2, weight, bias)
 
     @staticmethod
     def backward(ctx, g):
@@ -324,12 +355,16 @@ def kron_matmul(o1: torch.Tensor, o2: torch.Tensor, weight: torch.Tensor,
     """y[b] = vec(o1[b] o2[b]^T) @ weight.T + bias, the Kronecker vector
     never materialised.  ``weight`` is the torch Linear weight
     [K, d1*d2], row-major over (i, j).  Any B, d1, d2, K.  Differentiable
-    in all four inputs."""
+    in all four inputs.  On CUDA the forward is ``mml::kron_fwd``; on the
+    CPU too when no input needs a gradient (the plain version otherwise,
+    differentiated by autograd)."""
     if _device_of("kron_matmul", o1, o2, weight, bias) == "cpu":
-        return kron_matmul_plain(o1, o2, weight, bias)
-    _check("kron_matmul", {"o1": o1, "o2": o2, "weight": weight,
-                           "bias": bias},
-           _fits(o1, o2, weight, bias), "[B, d1], [B, d2], [K, d1*d2], [K]")
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (o1, o2, weight, bias)):
+            return kron_matmul_plain(o1, o2, weight, bias)
+        # the op's CPU kernel is the same plain version; through the op, an
+        # exported CPU graph keeps it whole
+        return torch.ops.mml.kron_fwd(o1, o2, weight, bias)
     return _KronMatmul.apply(o1, o2, weight, bias)
 
 

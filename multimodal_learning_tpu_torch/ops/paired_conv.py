@@ -9,10 +9,14 @@ Pallas kernel ``tools/pallas_conv_proto.py:_kernel`` (B5).  The card has no
 lanes to pair, so the port computes the same function with the same
 parameters through its own CUDA kernel (``csrc/conv3x3.cu``):
 
-- ``conv3x3(x, w, transposed=False)``: the kernel for CUDA tensors, its
-  plain version ``conv3x3_plain`` (``F.conv2d(x, w, padding=1)``) for CPU
-  tensors.  ``transposed`` convolves with ``w`` flipped in (ky, kx) and its
-  in and out channels swapped, read in place by the kernel.  ``x``
+- ``conv3x3(x, w, transposed=False)``: the kernel for CUDA tensors,
+  through the registered op ``mml::conv3x3`` (a CUDA kernel that launches
+  B5, a CPU kernel that runs the plain version ``conv3x3_plain``
+  (``F.conv2d(x, w, padding=1)``) and makes it channels-last, and a fake
+  that gives the shape and the channels-last strides), so that
+  ``torch.export`` captures the call, which it cannot trace into ctypes.
+  ``transposed`` convolves with ``w`` flipped in (ky, kx) and its in and
+  out channels swapped, read in place by the kernel.  ``x``
   is NCHW-shaped with channels-last strides, the memory the port's trunk
   holds (an NHWC tensor), handed to the kernel as NHWC without a copy; the
   result is channels-last too.  bf16 or fp32, any B, H, W, 64 channels in
@@ -84,22 +88,25 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("conv3x3: x is not channels-last contiguous")
     if not w.is_contiguous():
         raise ValueError("conv3x3: w is not contiguous")
+
+
+@torch.library.custom_op("mml::conv3x3", mutates_args=(), device_types="cpu")
+def conv3x3_op(x: torch.Tensor, w: torch.Tensor,
+               transposed: bool) -> torch.Tensor:
+    """B5 as a registered op, so that ``torch.export`` captures it: on the
+    CPU its plain version, made channels-last as the kernel's output is."""
+    return conv3x3_plain(x, w, transposed).contiguous(
+        memory_format=torch.channels_last)
+
+
+@conv3x3_op.register_kernel("cuda")
+def _conv3x3_cuda(x, w, transposed):
+    """Check, then launch B5 on the caller's stream; the only place its
+    launches are counted.  The checks run here, on real tensors, so that a
+    dynamic export does not guard on the symbolic batch."""
+    _check(x, w)
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("conv3x3: x and w must be 16-byte aligned")
-
-
-def conv3x3(x: torch.Tensor, w: torch.Tensor,
-            transposed: bool = False) -> torch.Tensor:
-    """Same-pad 3x3 stride-1 convolution, 64 -> 64 channels (kernel B5 on
-    CUDA, the plain version on the CPU).  ``x`` [B, 64, H, W] channels-last,
-    ``w`` [64, 64, 3, 3]; returns [B, 64, H, W] channels-last in x's
-    dtype.  ``transposed``: convolve with ``w.flip(2, 3).transpose(0, 1)``
-    (the data gradient) without forming it."""
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        return conv3x3_plain(x, w, transposed)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3: no kernel for device {x.device}")
-    _check(x, w)
     b, _, h, wd = x.shape
     y = torch.empty_like(x, memory_format=torch.channels_last)
     if y.numel() == 0:
@@ -115,6 +122,24 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
                            + lib.conv3x3_error_string(err).decode())
     conv3x3.launches += 1
     return y
+
+
+@conv3x3_op.register_fake
+def _conv3x3_fake(x, w, transposed):
+    return torch.empty_like(x, memory_format=torch.channels_last)
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor,
+            transposed: bool = False) -> torch.Tensor:
+    """Same-pad 3x3 stride-1 convolution, 64 -> 64 channels, through the
+    registered op ``mml::conv3x3``: kernel B5 on CUDA, the plain version
+    (made channels-last) on the CPU.  ``x`` [B, 64, H, W] channels-last,
+    ``w`` [64, 64, 3, 3]; returns [B, 64, H, W] channels-last in x's
+    dtype.  ``transposed``: convolve with ``w.flip(2, 3).transpose(0, 1)``
+    (the data gradient) without forming it."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv3x3: no kernel for device {x.device}")
+    return torch.ops.mml.conv3x3(x, w, transposed)
 
 
 class _PairedConv3x3(torch.autograd.Function):

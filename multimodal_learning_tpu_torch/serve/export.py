@@ -1,25 +1,35 @@
-"""The eval forward for serving, and its ``torch.save`` artifact.
+"""The eval forward for serving, and its ``torch.export`` artifact.
 
 Port of ``multimodal_learning_tpu/serve/export.py``.  The serving function
 takes ``(x_path: uint8[B,S,S,3], x_omic: float32[B,D])`` and returns the
 non-None branch hazards and predictions as float32, with the input
 normalisation of the JAX package (``x.astype(dt)/127.5 - 1`` in the compute
-dtype).
-
-The artifact is ``torch.save({"state_dict", "manifest"})`` plus the same
-``.json`` manifest sidecar as the JAX package's, with
-``"format": "torch.save/state_dict"`` and ``"platforms": ["cuda", "cpu"]``.
-Unlike the JAX package's StableHLO blob it needs the port's model code to
-load: ``load_exported`` rebuilds the model from ``manifest["opt"]``.
-
-Deviation from the JAX package: its ``make_infer_fn`` reroutes a
-``pallas_fusion`` model through the einsum path only because its artifact
-must also lower for the CPU, where a TPU kernel cannot.  The port keeps the
-Kronecker-fusion kernel on the serving path; on the CPU the same model runs
-the kernel's plain version.
-
-An mmdynamics model serves its fused branch alone,
+dtype).  An mmdynamics model serves its fused branch alone,
 ``{"pred_fuse": log_softmax(mm_logit)}`` (JAX ``serve/export.py:72-77``).
+
+That function is one module, :class:`ServingForward`: ``make_infer_fn``
+runs it eagerly and ``export_infer`` exports it with ``torch.export``, so
+the two cannot drift.  The artifact (``write_artifact``) is the exported
+program written by ``torch.export.save`` (a ``.pt2``) and the same
+``.json`` manifest sidecar as the JAX package's, with ``"format":
+"torch.export"``.  The batch is fixed, or ``torch.export.Dim("b")`` for
+``"dynamic"`` (JAX's symbolic ``b``), 1 to ``MAX_DYNAMIC_BATCH``.  Loading
+it (``serve/load.py``) needs torch and the port's ``ops`` modules, which
+register the kernels' ops; not the model code.
+
+Deviations from the JAX package:
+
+- one platform per artifact: the JAX artifact lowers for ``cpu`` and
+  ``tpu`` at once; a port artifact holds the device it was exported on
+  (``"platforms": [device type]``), because the encoders' autocast region
+  bakes that device type into the graph (a bf16 graph exported on CUDA and
+  moved to the CPU would run its encoders in fp32) and the weights are
+  saved on that device.  ``load_exported`` raises on another device type.
+- the JAX ``make_infer_fn`` reroutes a ``pallas_fusion`` model through the
+  einsum only because its artifact must also lower for the CPU; the port
+  keeps the Kronecker-fusion kernel (B2, ``mml::kron_fwd``) and, under
+  ``--paired_conv``, the stage-1 convolution (B5, ``mml::conv3x3``) in the
+  exported graph; on the CPU the same model runs their plain versions.
 """
 from __future__ import annotations
 
@@ -29,13 +39,17 @@ import os
 from typing import Any, Callable, Dict
 
 import torch
+from torch import nn
 
-from ..config import Options
-from ..models.factory import _dtype, define_model, is_dynamics
+from ..models.factory import _dtype, is_dynamics
 from ..models.pathomic import PathomicOutput
 
 _BRANCHES = ("hazard_fuse", "hazard_path", "hazard_omic",
              "pred_fuse", "pred_path", "pred_omic")
+# The largest batch of a dynamic artifact: in fp32 on CUDA, eval-mode
+# BatchNorm takes cuDNN only up to a batch of 65535 (ATen's rule), and the
+# graph is traced on that side of it.
+MAX_DYNAMIC_BATCH = 65535
 
 
 def adapt_output(opt, raw) -> PathomicOutput:
@@ -64,68 +78,94 @@ def _check_servable(opt) -> None:
             "Export with test_augment=False.")
 
 
+class ServingForward(nn.Module):
+    """The serving forward of ``model`` (kept in eval mode): uint8 patches
+    and float32 omic vectors on the model's device -> a dict of float32
+    branch outputs.  Both inputs are taken whatever the mode, so every
+    artifact has the same calling convention."""
+
+    def __init__(self, opt, model: nn.Module):
+        super().__init__()
+        _check_servable(opt)
+        self.opt = opt
+        self.dtype = _dtype(opt)
+        self.model = model
+        self.eval()
+
+    def forward(self, x_path: torch.Tensor, x_omic: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+        opt = self.opt
+        x = None
+        if opt.mode in ("path", "pathomic"):
+            x = x_path.to(self.dtype) / 127.5 - 1.0
+        if is_dynamics(opt):
+            mm_logit = self.model(x, x_omic, infer=True)
+            return {"pred_fuse": torch.log_softmax(mm_logit, dim=1).float()}
+        if opt.mode == "pathomic":
+            raw = self.model(x_path=x, x_omic=x_omic)
+        else:
+            raw = self.model(x if opt.mode == "path" else x_omic)
+        out = adapt_output(opt, raw)
+        return {k: getattr(out, k).float() for k in _BRANCHES
+                if getattr(out, k) is not None}
+
+
+def _device(module: nn.Module) -> torch.device:
+    return next(module.parameters()).device
+
+
 def make_infer_fn(opt, model) -> Callable:
     """Serving forward of ``model`` (put in eval mode) on the device that
-    holds its parameters.  Inputs may be numpy arrays or tensors on any
-    device; outputs are float32 tensors on the model's device."""
-    _check_servable(opt)
-    model.eval()
-    dev = next(model.parameters()).device
-    dt = _dtype(opt)
+    holds its parameters, run eagerly.  Inputs may be numpy arrays or
+    tensors on any device; outputs are float32 tensors on the model's
+    device."""
+    fwd = ServingForward(opt, model)
+    dev = _device(model)
 
     def infer(x_path, x_omic) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
-            x_omic = torch.as_tensor(x_omic, dtype=torch.float32, device=dev)
-            x = None
-            if opt.mode in ("path", "pathomic"):
-                x = torch.as_tensor(x_path, device=dev).to(dt) / 127.5 - 1.0
-            if is_dynamics(opt):
-                mm_logit = model(x, x_omic, infer=True)
-                return {"pred_fuse": torch.log_softmax(mm_logit, dim=1)
-                        .float()}
-            if opt.mode == "pathomic":
-                raw = model(x_path=x, x_omic=x_omic)
-            else:
-                raw = model(x if opt.mode == "path" else x_omic)
-            out = adapt_output(opt, raw)
-            return {k: getattr(out, k).float() for k in _BRANCHES
-                    if getattr(out, k) is not None}
+            return fwd(torch.as_tensor(x_path, device=dev),
+                       torch.as_tensor(x_omic, dtype=torch.float32,
+                                       device=dev))
 
     return infer
 
 
 def export_infer(opt, model, batch_size):
-    """Serve one batch of zeros at ``batch_size`` (an int, or ``"dynamic"``:
-    the artifact serves any batch size) on the model's device, to check the
-    weights and read the output names from the forward itself.  Returns
-    ``(state_dict, output_names)`` with the state_dict on the CPU."""
-    infer = make_infer_fn(opt, model)
-    b = 1 if batch_size == "dynamic" else int(batch_size)
+    """``torch.export`` of the serving forward on the model's device at
+    ``batch_size`` (an int, or ``"dynamic"``: any batch size up to
+    ``MAX_DYNAMIC_BATCH``, through ``torch.export.Dim("b")``, traced at a
+    batch of 2, since export specialises a dimension traced at 1), then
+    one forward of the exported program on zeros, to check it and read
+    its output names.  Returns ``(exported_program, output_names)``.  Runs
+    outside ``torch.inference_mode``, which export cannot trace."""
+    fwd = ServingForward(opt, model)
+    dev = _device(model)
+    b = 2 if batch_size == "dynamic" else int(batch_size)
     s = opt.input_size_path
-    out = infer(torch.zeros((b, s, s, 3), dtype=torch.uint8),
-                torch.zeros((b, opt.input_size_omic)))
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    return state, sorted(out)
+    args = (torch.zeros((b, s, s, 3), dtype=torch.uint8, device=dev),
+            torch.zeros((b, opt.input_size_omic), device=dev))
+    dynamic = None
+    if batch_size == "dynamic":
+        batch = torch.export.Dim("b", max=MAX_DYNAMIC_BATCH)
+        dynamic = {"x_path": {0: batch}, "x_omic": {0: batch}}
+    # no_grad: the kernels' registered ops stand in the graph (a CPU
+    # Kronecker contraction takes its op, not its differentiable einsum)
+    with torch.no_grad():
+        ep = torch.export.export(fwd, args, dynamic_shapes=dynamic,
+                                 strict=False)
+    with torch.inference_mode():
+        out = ep.module()(*args)
+    return ep, sorted(out)
 
 
-def load_exported(path: str, device) -> Callable:
-    """Rebuild an artifact's model from its manifest on ``device`` and
-    return its serving function."""
-    blob = torch.load(path, map_location="cpu", weights_only=True)
-    saved = blob["manifest"]["opt"]
-    fields = {f.name for f in dataclasses.fields(Options)}
-    opt = Options(**{k: v for k, v in saved.items() if k in fields})
-    model = define_model(opt)
-    model.load_state_dict(blob["state_dict"], strict=True)
-    return make_infer_fn(opt, model.to(device))
-
-
-def manifest(opt, batch_size, outputs) -> Dict[str, Any]:
-    """Sidecar JSON: calling convention + the config that produced it."""
+def manifest(opt, batch_size, outputs, device) -> Dict[str, Any]:
+    """Sidecar JSON: calling convention, platform and the config that
+    produced it."""
     b = "b" if batch_size == "dynamic" else batch_size
     return {
-        "format": "torch.save/state_dict",
-        "platforms": ["cuda", "cpu"],
+        "format": "torch.export",
+        "platforms": [torch.device(device).type],
         "inputs": {
             "x_path": f"uint8[{b},{opt.input_size_path},"
                       f"{opt.input_size_path},3]",
@@ -138,9 +178,10 @@ def manifest(opt, batch_size, outputs) -> Dict[str, Any]:
     }
 
 
-def write_artifact(path: str, state_dict: Dict[str, torch.Tensor],
-                   man: Dict[str, Any]) -> None:
+def write_artifact(path: str, exported, man: Dict[str, Any]) -> None:
+    """``path`` (the ``.pt2`` of ``torch.export.save``) and
+    ``path + ".json"`` (the manifest)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save({"state_dict": state_dict, "manifest": man}, path)
+    torch.export.save(exported, path)
     with open(path + ".json", "w") as fh:
         json.dump(man, fh, indent=1, default=str)

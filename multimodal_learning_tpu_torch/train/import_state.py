@@ -11,6 +11,8 @@ so the bridge works on that state as nested numpy trees in one plain dict
                 "crd_fuse_t": {...}},       # heads only with CRD
      "batch_stats": ..., "ema_params": ..., "ema_batch_stats": ...,
      "adam": {"count": int, "mu": <as params>, "nu": <as params>},
+                                            # Adam, AdaBound
+     "rss": {"count": int, "sum_of_squares": <as params>},   # Adagrad
      "banks": {"fuse": {"memory_v1", "memory_v2", "z_v1", "z_v2"},
                "tsvd": {"aux1", "aux2", "mu", "tnn1", "tnn2"}}}
 
@@ -24,9 +26,11 @@ its Z), or under ``--distill hkd`` the heads ``hkd_embed_{s,t}``
 teacher's ``{"params", "batch_stats"}`` travels on its own, through
 ``models/import_flax.py``.
 
-Weights and Adam's moments go through the same key maps and transposes
-(``models/import_flax.py``); optax's ``count`` becomes torch Adam's
-``step`` and the schedule's update count.
+Weights and the optimizer's moments go through the same key maps and
+transposes (``models/import_flax.py``): Adam's and AdaBound's ``mu``/``nu``
+(``exp_avg``/``exp_avg_sq``), Adagrad's ``sum_of_squares`` (``sum``);
+optax's ``count`` becomes the torch optimizer's ``step`` and the
+schedule's update count.
 """
 from __future__ import annotations
 
@@ -40,7 +44,15 @@ from torch import nn
 from ..contrast.crd import CRDBank
 from ..contrast.hkd import HKDBank
 from ..models.import_flax import flax_from_state_dict, state_dict_from_flax
+from .optim import AdaBound
 from .state import TrainState, TsvdAux
+
+# each optimizer's entry of the tree and its moments: torch state key ->
+# optax name
+_MOMENTS = {torch.optim.Adam: ("adam", {"exp_avg": "mu",
+                                        "exp_avg_sq": "nu"}),
+            AdaBound: ("adam", {"exp_avg": "mu", "exp_avg_sq": "nu"}),
+            torch.optim.Adagrad: ("rss", {"sum": "sum_of_squares"})}
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -104,14 +116,18 @@ def load_jax_state(state: TrainState, tree) -> TrainState:
         strict=True)
     for side, emb in state.embeds.items():
         emb.load_state_dict(_embed_sd(tree["params"][side]), strict=True)
-    adam, count = tree["adam"], int(tree["adam"]["count"])
-    mu = _param_tree_to_torch(state, adam["mu"], stats)
-    nu = _param_tree_to_torch(state, adam["nu"], stats)
     torch_opt = state.optimizer.optimizer
+    kind, moments = _MOMENTS[type(torch_opt)]
+    count = int(tree[kind]["count"])
+    loaded = {key: _param_tree_to_torch(state, tree[kind][src], stats)
+              for key, src in moments.items()}
     for name, p in _named_params(state).items():
-        torch_opt.state[p] = {"step": torch.tensor(float(count)),
-                              "exp_avg": mu[name].to(dev),
-                              "exp_avg_sq": nu[name].to(dev)}
+        # one step counter per parameter: torch's optimizers add to it in
+        # place
+        step = count if isinstance(torch_opt, AdaBound) \
+            else torch.tensor(float(count))
+        torch_opt.state[p] = {"step": step, **{
+            key: t[name].to(dev) for key, t in loaded.items()}}
     state.optimizer.count = count
     state.step = int(tree["step"])
     tensor = lambda v: torch.tensor(np.asarray(v, np.float32), device=dev)
@@ -124,6 +140,12 @@ def load_jax_state(state: TrainState, tree) -> TrainState:
     return state
 
 
+def param_tree(state: TrainState):
+    """The trainable parameters (the model's and the heads') as the JAX
+    package's ``params`` tree."""
+    return _torch_to_param_tree(state, dict(_named_params(state)))
+
+
 def jax_state_tree(state: TrainState):
     """The port state as the JAX package's train state, in the layout
     above (numpy trees)."""
@@ -132,6 +154,7 @@ def jax_state_tree(state: TrainState):
         state.ema_model.state_dict())
     named = _named_params(state)
     torch_opt = state.optimizer.optimizer
+    kind, moments = _MOMENTS[type(torch_opt)]
 
     def moment(key):
         return _torch_to_param_tree(state, {
@@ -140,11 +163,11 @@ def jax_state_tree(state: TrainState):
 
     return {
         "step": state.step,
-        "params": _torch_to_param_tree(state, dict(named)),
+        "params": param_tree(state),
         "batch_stats": stats, "ema_params": ema_params,
         "ema_batch_stats": ema_stats,
-        "adam": {"count": state.optimizer.count, "mu": moment("exp_avg"),
-                 "nu": moment("exp_avg_sq")},
+        kind: {"count": state.optimizer.count,
+               **{src: moment(key) for key, src in moments.items()}},
         "banks": {name: _np(bank) if isinstance(bank, torch.Tensor)
                   else {k: _np(v) for k, v in dataclasses.asdict(bank).items()}
                   for name, bank in state.banks.items()},

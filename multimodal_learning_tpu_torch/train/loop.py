@@ -48,7 +48,7 @@ from ..models.import_flax import flax_from_state_dict
 from ..utils.checkpoint import (load_train_state, save_checkpoint,
                                 save_train_state)
 from ..utils.logging import MetricsLogger
-from .import_state import jax_state_tree
+from .import_state import param_tree
 from .schedules import PlateauTracker, make_lr_schedule
 from .steps import (build_eval_step, build_mmdynamics_train_step,
                     build_teacher_train_step, init_teacher_state,
@@ -146,8 +146,7 @@ def fold_payload(opt, fold, epoch, state, metrics, with_crd=False) -> Dict:
                "ema_model_state_dict": ema_params,
                "ema_batch_stats": ema_stats, "metrics": metrics}
     if with_crd:
-        payload["crd_params"] = {k: v for k, v in
-                                 jax_state_tree(state)["params"].items()
+        payload["crd_params"] = {k: v for k, v in param_tree(state).items()
                                  if k != "model"}
     return payload
 

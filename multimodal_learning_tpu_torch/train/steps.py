@@ -58,8 +58,10 @@ from ..losses import (cox_loss, l1_regularizer, nll_loss, orth_loss,
                       pred_kd_loss, sp_loss, supcon_loss)
 from ..lowrank import build_view_features, update_adj_tensor, update_aux
 from ..masking.superpixel import frozen_params, superpixel_attention_mask
+from ..models.common import apply_init_type, reinit_generator
 from ..models.factory import _dtype, is_dynamics
 from ..models.fusion import _KronEncoder1
+from ..models.import_torch import apply_pretrained
 from ..models.pathomic import PathomicOutput
 from .ema import update_ema
 from .optim import make_optimizer
@@ -153,22 +155,32 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def init_model(opt, model: nn.Module, seed: int) -> nn.Module:
+    """``--pretrained_path`` then ``--init_type`` on a freshly built model,
+    in place, in the reference's order: the pretrained weights load in the
+    constructor (``resnets.py:275-284``) and ``init_net -> init_weights``
+    runs after it (``utils.py:263-265``), so normal/xavier/kaiming/
+    orthogonal clobber the pretrained trunk and only max/none keep it (JAX
+    ``train/steps.py:164-176``).  The re-initialisation draws from its own
+    generator, so the heads' and banks' draws from ``seed`` stay as they
+    are."""
+    apply_pretrained(opt, model)
+    return apply_init_type(model, opt.init_type, opt.init_gain,
+                           reinit_generator(seed))
+
+
 def init_teacher_state(opt, model: nn.Module, lr_schedule, n_data: int,
                        seed: int = 0, device=None) -> TrainState:
     """The teacher flow's state on ``device`` (CUDA when None): the model
     (moved there), the CRD heads and bank drawn on the CPU from ``seed``,
     Adam, the EMA model (a copy with its own parameters and buffers), and
     a device generator seeded with ``seed`` for augmentation and the
-    Kronecker dropout masks.  ``--global_step`` seeds the step counter
+    Kronecker dropout masks.  ``--pretrained_path`` and ``--init_type``
+    apply first (:func:`init_model`), so the EMA starts from their
+    weights.  ``--global_step`` seeds the step counter
     (reference ``iter_num``, ``train_test_MT.py:104``)."""
     dev = resolve_device(device)
-    if opt.init_type not in ("max", "none", "normal_default"):
-        raise NotImplementedError(
-            f"--init_type {opt.init_type} (the post-init re-initialisation) "
-            "is not ported yet: ROADMAP A2")
-    if getattr(opt, "pretrained_path", ""):
-        raise NotImplementedError(
-            "--pretrained_path is not ported yet: ROADMAP A18")
+    init_model(opt, model, seed)
     gen = torch.Generator().manual_seed(seed)
     embeds, banks = nn.ModuleDict(), {}
     if opt.CRD_distill == 1:

@@ -36,9 +36,8 @@ float32, as the JAX student recomputes them, whatever the encoder dtype.
 Refused: the ``--distill`` values the JAX student wires no loss for
 (``attention``, ``vid``, ``kdsvd``, ``fsp``, ``abound``, ``factor``,
 ``nst``; JAX trains them silently as plain ``kd``: a documented deviation
-in ROADMAP's ground rules), and, naming their ROADMAP items,
-``--pretrained_path`` (A18), ``--data_parallel`` above 1 (A19) and the
-``--init_type`` values the teacher refuses (A2).
+in ROADMAP's ground rules), and ``--data_parallel`` above 1, naming its
+ROADMAP item (A19).
 """
 from __future__ import annotations
 
@@ -79,7 +78,7 @@ from .loop import evaluate, fold_payload
 from .optim import make_optimizer
 from .schedules import PlateauTracker, make_lr_schedule
 from .state import TrainState
-from .steps import build_eval_step, resolve_device
+from .steps import build_eval_step, init_model, resolve_device
 
 # the distiller-zoo losses of ``kd1``: the student feature against the
 # fused teacher feature (JAX ``train/student.py:219-230``)
@@ -97,15 +96,9 @@ def _refuse_unported(opt) -> None:
             "and trains it as plain kd (its KL terms only); the port "
             f"accepts {DISTILL_MODES} (a documented deviation, ROADMAP "
             "ground rules)")
-    for cond, what in (
-            (bool(getattr(opt, "pretrained_path", "")),
-             "--pretrained_path: ROADMAP A18"),
-            (opt.data_parallel > 1, "--data_parallel > 1: ROADMAP A19"),
-            (opt.init_type not in ("max", "none", "normal_default"),
-             f"--init_type {opt.init_type} (the post-init "
-             "re-initialisation): ROADMAP A2")):
-        if cond:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if opt.data_parallel > 1:
+        raise NotImplementedError(
+            "--data_parallel > 1: ROADMAP A19 is not ported yet")
 
 
 def init_student_state(opt, model: nn.Module, lr_schedule, n_data: int,
@@ -118,9 +111,12 @@ def init_student_state(opt, model: nn.Module, lr_schedule, n_data: int,
     (``GNN.py:121-134``) and the bank ``"hkd"``, in the JAX package's
     order, under momentum AEKD a NaN ("unseeded") scale,
     Adam, the EMA model, the step's device generator (``seed``) and the
-    frozen teacher's (``seed + 1``)."""
+    frozen teacher's (``seed + 1``).  ``--pretrained_path`` and
+    ``--init_type`` apply first (``steps.init_model``), so the EMA starts
+    from their weights."""
     _refuse_unported(opt)
     dev = resolve_device(device)
+    init_model(opt, model, seed)
     gen = torch.Generator().manual_seed(seed)
     embeds, banks = nn.ModuleDict(), {}
     if opt.distill == "crd":

@@ -812,3 +812,119 @@ def test_new_fusions_eval_forward_on_card_matches_cpu(cuda, fusion_type):
     for k in want:
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=2e-3,
                                    atol=5e-4, msg=k)
+
+
+# ------------------------------------------------ registered ops and export
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 129, 129, 128), (3, 200, 170, 33)])
+def test_kron_op_equals_the_direct_launch_and_its_fake(cuda, shape):
+    """``mml::kron_fwd`` (B2 through the dispatcher) equals a direct launch
+    bitwise and counts one launch; its fake gives the real output's shape,
+    strides and dtype."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    args = _inputs(*shape, cuda)
+    before = kron_fusion.kron_matmul.launches
+    got = torch.ops.mml.kron_fwd(*args)
+    want = kron_fusion._fwd_launch(*args)
+    torch.cuda.synchronize()
+    assert kron_fusion.kron_matmul.launches == before + 2
+    assert torch.equal(got, want)
+    with FakeTensorMode() as mode:
+        fake = torch.ops.mml.kron_fwd(*(mode.from_tensor(t) for t in args))
+    assert (fake.shape, fake.stride(), fake.dtype, fake.device) == (
+        got.shape, got.stride(), got.dtype, got.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_conv3x3_op_equals_the_direct_launch_and_its_fake(cuda, dtype,
+                                                          transposed):
+    """``mml::conv3x3`` (B5 through the dispatcher) equals a direct launch
+    of its CUDA kernel bitwise; its fake gives the real output's shape and
+    channels-last strides."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    x, w = _conv_inputs((3, 37, 50, 64), cuda, dtype)
+    before = paired_conv.conv3x3.launches
+    got = torch.ops.mml.conv3x3(x, w, transposed)
+    want = paired_conv._conv3x3_cuda(x, w, transposed)
+    torch.cuda.synchronize()
+    assert paired_conv.conv3x3.launches == before + 2
+    assert torch.equal(got, want)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    with FakeTensorMode() as mode:
+        fake = torch.ops.mml.conv3x3(mode.from_tensor(x), mode.from_tensor(w),
+                                     transposed)
+    assert (fake.shape, fake.stride(), fake.dtype) == (
+        got.shape, got.stride(), got.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paired,dtype", [(False, "float32"),
+                                          (True, "bfloat16")])
+def test_exported_artifact_equals_the_eager_forward_on_card(
+        cuda, tmp_path, paired, dtype):
+    """A dynamic-batch ``.pt2`` exported on the card serves batches 1, 3
+    and 8 bitwise equal to the eager forward, launching B2 once and B5 4
+    times (paired) per forward."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.serve import (export_infer,
+                                                     load_exported,
+                                                     make_infer_fn, manifest,
+                                                     write_artifact)
+    opt = Options(mode="pathomic", task="grad", input_size_path=64,
+                  path_dim=16, omic_dim=16, mmhid=16, pallas_fusion="train",
+                  paired_conv=paired, compute_dtype=dtype)
+    model = define_model(opt, generator=torch.Generator().manual_seed(3))
+    model.to(cuda)
+    exported, outputs = export_infer(opt, model, "dynamic")
+    path = str(tmp_path / "m.pt2")
+    write_artifact(path, exported, manifest(opt, "dynamic", outputs, cuda))
+    infer, eager = load_exported(path, cuda), make_infer_fn(opt, model)
+    g = torch.Generator().manual_seed(4)
+    for n in (1, 3, 8):
+        x = torch.randint(0, 256, (n, 64, 64, 3), dtype=torch.uint8,
+                          generator=g)
+        om = torch.randn(n, 80, generator=g)
+        start = _launches()
+        got = infer(x, om)
+        torch.cuda.synchronize()
+        launched = {k: v - start[k] for k, v in _launches().items()}
+        assert launched == dict(B1=0, B2=1, B3=0, B4=0,
+                                B5=4 if paired else 0)
+        want = eager(x, om)
+        assert sorted(got) == sorted(want) == outputs
+        for k in want:
+            assert torch.equal(got[k], want[k]), (n, k)
+    with pytest.raises(ValueError, match="not cpu"):
+        load_exported(path, "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["ResNet34", "ResNet50"])
+def test_deep_resnets_on_card_match_cpu(cuda, arch):
+    """The fp32 eval forward of ResNet34 (paired) and ResNet50 on the card
+    against the CPU from the same weights, at phase 5's tolerance (rtol
+    2e-3 / atol 5e-4); ResNet34 launches B5 6 times per forward (two
+    convolutions in each of the 64-channel stage's 3 blocks)."""
+    from multimodal_learning_tpu_torch import models
+    kw = {"paired": True} if arch == "ResNet34" else {}
+    g = torch.Generator().manual_seed(6)
+    x = torch.rand(4, 64, 64, 3, generator=g)
+    cpu = getattr(models, arch)(path_dim=16, generator=torch.Generator()
+                                .manual_seed(5), **kw).eval()
+    card = getattr(models, arch)(path_dim=16, **kw).eval()
+    card.load_state_dict(cpu.state_dict())
+    card.to(cuda)
+    with torch.no_grad():
+        want = cpu(x)
+        before = paired_conv.conv3x3.launches
+        got = card(x.to(cuda))
+        torch.cuda.synchronize()
+    assert paired_conv.conv3x3.launches - before == (6 if kw else 0)
+    for name, a, b in zip(("feat_f3", "features", "hazard", "pred"), got,
+                          want):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-3, atol=5e-4,
+                                   msg=f"{arch} {name}")

@@ -158,24 +158,108 @@ def test_resume_continues_after_the_snapshot(tmp_path):
     assert res["n"] == 12
 
 
-@pytest.mark.parametrize("flags,item", [
-    (dict(init_type="xavier"), "A2"), (dict(data_parallel=2), "A19")])
+@pytest.mark.parametrize("flags,item", [(dict(data_parallel=2), "A19")])
 def test_train_teacher_refuses_what_is_not_ported(flags, item):
     data = make_synthetic_splits(n_train=8, n_test=4, roi_size=32, seed=0)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         loop.train_teacher(_tiny(**flags), data, 1, device="cpu")
 
 
+def test_train_teacher_accepts_init_type(tmp_path):
+    """``--init_type xavier`` (the re-initialisation) trains a fold: it
+    initialises, takes its steps and evaluates to finite probabilities."""
+    data = make_synthetic_splits(n_train=8, n_test=12, roi_size=32, seed=0)
+    res, _ = loop.train_teacher(_tiny(init_type="xavier",
+                                      checkpoints_dir=str(tmp_path)),
+                                data, 1, device="cpu")
+    assert res["n"] == 12
+    assert np.isfinite(res["probs"]["fuse"]).all()
+
+
+@pytest.mark.parametrize("optimizer_type", ["adabound", "adagrad"])
+def test_train_teacher_checkpoints_with_every_optimizer(tmp_path,
+                                                        optimizer_type):
+    """A fold trained with AdaBound or Adagrad reaches its final checkpoint,
+    which carries the CRD heads (``crd_params``) whatever state the
+    optimizer keeps."""
+    from multimodal_learning_tpu_torch.utils.checkpoint import \
+        load_checkpoint
+    data = make_synthetic_splits(n_train=8, n_test=12, roi_size=32, seed=0)
+    opt = _tiny(optimizer_type=optimizer_type, checkpoints_dir=str(tmp_path),
+                exp_name="e", model_name="m")
+    res, _ = loop.train_teacher(opt, data, 1, device="cpu")
+    assert np.isfinite(res["probs"]["fuse"]).all()
+    payload = load_checkpoint(os.path.join(str(tmp_path), "e", "m",
+                                           "m_1.pt"))
+    assert sorted(payload["crd_params"]) == ["crd_fuse_s", "crd_fuse_t"]
+
+
+@pytest.mark.parametrize("optimizer_type", ["adam", "adabound", "adagrad"])
+def test_state_tree_round_trips_each_optimizer(optimizer_type):
+    """``jax_state_tree`` holds each optimizer's moments in optax's names
+    (Adam's and AdaBound's ``mu``/``nu``, Adagrad's ``sum_of_squares``), and
+    ``load_jax_state`` puts them back: the next step of both states is the
+    same."""
+    from multimodal_learning_tpu_torch.train.import_state import (
+        jax_state_tree, load_jax_state)
+    opt = _tiny(optimizer_type=optimizer_type)
+    step = build_teacher_train_step(opt)
+    a = _state(opt, 1)
+    step(a, _batch(opt, 0), 0.1)
+    tree = jax_state_tree(a)
+    kind = "rss" if optimizer_type == "adagrad" else "adam"
+    assert tree[kind]["count"] == 1
+    b = load_jax_state(_state(opt, 2), tree)
+    b.generator.set_state(a.generator.get_state())   # not in the JAX tree
+    batch = _batch(opt, 1)
+    ma, mb = step(a, batch, 0.1)[1], step(b, batch, 0.1)[1]
+    for k in ma:
+        assert torch.equal(ma[k], mb[k]), k
+    for k, v in a.model.state_dict().items():
+        if not k.endswith("num_batches_tracked"):   # not in the JAX tree
+            assert torch.equal(v, b.model.state_dict()[k]), k
+
+
 def test_drivers_refuse_multihost_and_pretrained_only(tmp_path, monkeypatch):
+    """Multi-host training is refused (A19); ``test_cv_MT --pretrained_path``
+    without a fold checkpoint evaluates the converted weights, with a
+    ``{k}`` placeholder per fold, and dumps the same predictions as an
+    evaluation of a model loaded with them."""
     from multimodal_learning_tpu_torch.cli import test_cv_MT, train_cv_MT
+    from multimodal_learning_tpu_torch.eval import load_pred_test
+    from multimodal_learning_tpu_torch.models import flax_from_state_dict
+    from multimodal_learning_tpu_torch.models.import_torch import \
+        save_pretrained_npz
+    from multimodal_learning_tpu_torch.train.steps import build_eval_step
     monkeypatch.setenv("MML_PLATFORM", "cpu")
     monkeypatch.setenv("MML_MULTIHOST", "1")
     with pytest.raises(NotImplementedError, match="ROADMAP A19"):
         train_cv_MT.main(TRAIN + ["--checkpoints_dir", str(tmp_path)])
     opt = parse_args(TEST + ["--checkpoints_dir", str(tmp_path),
-                             "--pretrained_path", "ref.pt"], save=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        test_cv_MT.run_fold(opt, None, 1, device="cpu")
+                             "--pretrained_path",
+                             os.path.join(str(tmp_path), "ref_{k}.npz")],
+                     save=False)
+    released = define_model(opt, generator=torch.Generator().manual_seed(9))
+    save_pretrained_npz(os.path.join(str(tmp_path), "ref_1.npz"),
+                        *flax_from_state_dict(released.state_dict()))
+    data = make_synthetic_splits(n_train=8, n_test=12, roi_size=64, seed=0)
+    res = test_cv_MT.run_fold(opt, data, 1, device="cpu")
+    dumped = load_pred_test(os.path.join(str(tmp_path), opt.exp_name, "vt",
+                                         "vt_1_pred_test.pkl"))
+    from multimodal_learning_tpu_torch.data.pipeline import (Loader,
+                                                             PathomicDataset)
+    loader = Loader(PathomicDataset(opt, data["cv_splits"][1], "test",
+                                    train=False), opt.batch_size,
+                    shuffle=False, drop_last=False, n_views=1)
+    try:
+        want = loop.evaluate(opt, build_eval_step(opt), released, loader,
+                             "cpu", torch.Generator().manual_seed(opt.seed))
+    finally:
+        loader.close()
+    for name in BRANCHES:
+        np.testing.assert_array_equal(dumped["probs"][name],
+                                      want["probs"][name])
+        np.testing.assert_array_equal(res["probs"][name], want["probs"][name])
 
 
 def test_drivers_without_cuda_refuse_to_fall_back(tmp_path, monkeypatch):

@@ -128,10 +128,10 @@ def test_jax_checkpoint_exported_and_served_by_port_cli(tmp_path,
              "m", "--export_batch", "4"]
 
     written = export_model.main(flags)
-    assert written == [os.path.join(root, "e", "m", "m_1.serve.pt")]
+    assert written == [os.path.join(root, "e", "m", "m_1.pt2")]
     man = json.load(open(written[0] + ".json"))
-    assert man["format"] == "torch.save/state_dict"
-    assert man["platforms"] == ["cuda", "cpu"]
+    assert man["format"] == "torch.export"
+    assert man["platforms"] == ["cpu"]
     assert man["inputs"]["x_path"] == f"uint8[4,{SIZE},{SIZE},3]"
     assert man["outputs"] == sorted(["hazard_fuse", "hazard_path",
                                      "hazard_omic", "pred_fuse", "pred_path",
@@ -193,6 +193,7 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.models.pathomic",
     "multimodal_learning_tpu_torch.models.factory",
     "multimodal_learning_tpu_torch.models.import_flax",
+    "multimodal_learning_tpu_torch.models.import_torch",
     "multimodal_learning_tpu_torch.models.mmdynamic",
     "multimodal_learning_tpu_torch.models.resnet_decoder",
     "multimodal_learning_tpu_torch.ops",
@@ -207,8 +208,10 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.utils.logging",
     "multimodal_learning_tpu_torch.serve",
     "multimodal_learning_tpu_torch.serve.export",
+    "multimodal_learning_tpu_torch.serve.load",
     "multimodal_learning_tpu_torch.cli",
     "multimodal_learning_tpu_torch.cli._platform",
+    "multimodal_learning_tpu_torch.cli.convert_torch",
     "multimodal_learning_tpu_torch.cli.export_model",
     "multimodal_learning_tpu_torch.cli.predict",
     "multimodal_learning_tpu_torch.cli.train_cv_MT",
@@ -284,7 +287,7 @@ def test_cli_without_cuda_refuses_to_fall_back(tmp_path, monkeypatch):
     from multimodal_learning_tpu_torch.cli import export_model, predict
     monkeypatch.delenv("MML_PLATFORM", raising=False)
     with pytest.raises(RuntimeError, match="MML_PLATFORM=cpu"):
-        predict.main(["--artifact", os.path.join(str(tmp_path), "m.serve.pt"),
+        predict.main(["--artifact", os.path.join(str(tmp_path), "m.pt2"),
                       "--images_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="MML_PLATFORM=cpu"):
         export_model.main(["--checkpoints_dir", str(tmp_path)])

@@ -597,9 +597,7 @@ REFUSED = {
     # the JAX student wires no loss for --distill vid (nor attention,
     # kdsvd, fsp, abound, factor, nst) and trains it as plain kd
     "distill_vid": (dict(distill="vid"), "ground rules"),
-    "pretrained": (dict(pretrained_path="weights.pth"), "A18"),
     "data_parallel": (dict(data_parallel=2), "A19"),
-    "init_type": (dict(init_type="xavier"), "A2"),
 }
 
 
@@ -614,3 +612,56 @@ def test_student_refusals_name_their_roadmap_item(case):
                  lambda: pstudent.train_student(opt, {}, 1, device="cpu")):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\b"):
             call()
+
+
+ACCEPTED = ("pretrained", "init_type")
+
+
+@pytest.mark.parametrize("case", ACCEPTED)
+def test_student_accepts_pretrained_and_init_type(case, tmp_path,
+                                                  monkeypatch):
+    """``--pretrained_path`` (a ResNet-only ``.npz`` at the path-only
+    student's root) and ``--init_type xavier``: the student initialises,
+    its EMA starts from the loaded or redrawn weights, and it takes a
+    step with finite losses."""
+    from multimodal_learning_tpu_torch.models import flax_from_state_dict
+    from multimodal_learning_tpu_torch.models.import_torch import \
+        save_pretrained_npz
+    flags = dict(init_type="xavier")
+    source = define_model(Options(**DIMS), path_only=True,
+                          generator=torch.Generator().manual_seed(11))
+    if case == "pretrained":
+        params, stats = flax_from_state_dict(source.state_dict())
+        flags = dict(pretrained_path=str(tmp_path / "trunk.npz"))
+        save_pretrained_npz(flags["pretrained_path"],
+                            {k: v for k, v in params.items()
+                             if not k.startswith("fc_new")},
+                            {k: v for k, v in stats.items()
+                             if not k.startswith("fc_new")})
+    opt = Options(**dict(DIMS, **flags))
+    monkeypatch.setattr(pstudent, "augment_views",
+                        lambda gen, v, dtype=None: v)
+    fresh = define_model(opt, path_only=True,
+                         generator=torch.Generator().manual_seed(0))
+    drawn = {k: v.clone() for k, v in fresh.state_dict().items()}
+    state = pstudent.init_student_state(opt, fresh, make_lr_schedule(opt, 5),
+                                        N_DATA, device="cpu")
+    got = state.model.state_dict()
+    if case == "pretrained":
+        assert torch.equal(got["conv1.weight"], source.conv1.weight)
+        assert torch.equal(got["layer4.1.bn2.running_var"],
+                           source.layer4[1].bn2.running_var)
+        assert torch.equal(got["fc_new2.weight"], drawn["fc_new2.weight"])
+    else:
+        assert not torch.equal(got["conv1.weight"], drawn["conv1.weight"])
+        assert not got["fc_new2.bias"].any()
+    for k, v in state.ema_model.state_dict().items():
+        assert torch.equal(v, got[k]), k
+    teacher = pstudent.freeze_teacher(
+        define_model(opt, generator=torch.Generator().manual_seed(5)), "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _student_batch(3).items()}
+    state, metrics = pstudent.build_student_train_step(opt, teacher)(
+        state, batch, 1)
+    assert state.optimizer.count == 1
+    assert all(torch.isfinite(v).all() for k, v in metrics.items()
+               if k.startswith("loss")), metrics
