@@ -18,9 +18,9 @@ Phases, each of which raises on failure (nothing is caught):
    the paper width and a batch of 70 at K = 512), bitwise equal on a second
    launch;
 4. drives the serving path end to end at the pofusion teacher's full width
-   (ResNet18 on 512^2 patches + MaxNet + Kronecker fusion, path_dim =
-   omic_dim = mmhid = 128, bf16 encoders, batch 16) with seeded random
-   weights: a fold checkpoint in the JAX package's layout ->
+   (the ``teacher`` recipe: ResNet18 on 512^2 patches + MaxNet + Kronecker
+   fusion, path_dim = omic_dim = mmhid = 128, bf16 encoders, batch 16) with
+   seeded random weights: a fold checkpoint in the JAX package's layout ->
    ``cli.export_model`` -> ``cli.predict`` on 20 synthetic 600x600 PNGs and
    an omic CSV, counting the kernels' launches;
 5. cross-checks the same weights' float32 forward on the card (kernel path,
@@ -63,7 +63,7 @@ Phases, each of which raises on failure (nothing is caught):
 13. times B5 (bf16 and fp32) against its plain version, ``F.conv2d`` and
     its bound, and prints the share of the bound reached and the ratio to
     ``F.conv2d`` for each dtype;
-14. drives the MICCAI student's step at full width (the JAX package's
+14. drives the MICCAI student's step at full width (the port's
     ``recipes/baseline.py`` ``miccai_student``: CRD from two teachers,
     nce_p 300 -> 20 by ``mid``, nce_k 700 -> 512, AEKD ``GK_refine`` with
     the CE gradient, bf16, 512^2, batch 16) through ``freeze_teacher`` on
@@ -185,7 +185,25 @@ Phases, each of which raises on failure (nothing is caught):
     the dynamic artifacts serve batches 1, 5 and 16 bitwise; B2 once and
     B5 4 times (paired) per forward; ms per batch of 16, artifact against
     eager, in turns; the host cost of the registered ops' dispatch per
-    launch.
+    launch;
+36. the ``teacher`` recipe through the offline evaluation chain as a user
+    runs it, at full width on two synthetic folds (64 + 32 ROIs each, one
+    patch per patient, 2 epochs, seed 2020): ``cli.train_cv_MT`` ->
+    ``cli.export_model`` -> ``cli.test_cv_MT`` -> ``cli.evaluation_GBMLGG``
+    -> ``cli.ROI_evaluation``; B1 twice per step, B2 once per eval forward
+    and once per exported fold's check forward; each fold's patient-level
+    ``max`` and ``mean`` rows equal to test_cv_MT's metrics of that fold
+    exactly, and ROI_evaluation's rows to ``roi_evaluation`` of the dumped
+    probabilities; each driver's wall s;
+37. ``cli.sweep --folds 2`` over its four groups (omic, teacher -> MICCAI
+    student, t-SVD -> DSCD student, CLAT) at the sweep's own tiny widths,
+    where ``pallas_fusion`` is off and no kernel launches: the five
+    sections with finite fold means and the patient-level table; its wall
+    s.
+
+Phases 4, 14-17, 19-22, 27, 29 and 32-36 take their configurations from
+the port's recipes (``recipes/baseline.py``) with the cuts named beside
+them (``_recipe``).
 
 Every phase that counts host synchronisations (7, 11, 14, 15, 19, 21,
 23, 24, 25, 28, 29, 33) fails if one comes from the augmentation.
@@ -203,6 +221,7 @@ CUDA is unavailable or the port's package is not beside this script.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -213,6 +232,10 @@ import time
 
 import numpy as np
 import torch
+
+from multimodal_learning_tpu_torch.config import Options
+from multimodal_learning_tpu_torch.recipes import get_recipe
+from multimodal_learning_tpu_torch.recipes.baseline import _PAPER_DIMS
 
 SEED = 2019
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
@@ -235,6 +258,23 @@ FWD_SHAPES = KRON_SHAPES + [(3, 200, 170, 33), (2, 3, 5, 7),
 # a batch beyond one staged chunk of B3 and several g chunks of B4
 BWD_SHAPES = FWD_SHAPES + [(16, 129, 129, 33), (70, 9, 9, 512)]
 N_IMAGES = 20
+
+
+def _recipe(name, **cuts):
+    """The port's ``recipes.get_recipe(name, **cuts)`` as a dict of the
+    paper dims and every field it sets away from ``Options``' defaults, so
+    that ``Options(**_recipe(...))`` is that recipe and the dict passes as
+    CLI flags."""
+    opt, base = get_recipe(name, **cuts), Options()
+    return {f.name: getattr(opt, f.name) for f in dataclasses.fields(opt)
+            if f.name in _PAPER_DIMS or f.name in cuts
+            or getattr(opt, f.name) != getattr(base, f.name)}
+
+
+# the recipes' shared paper width (bf16, 512^2, batch 16, B1/B2 on)
+PAPER = dict(_PAPER_DIMS)
+# phase 4's serving path: the ``teacher`` recipe under a name of its own
+SERVE_CONFIG = _recipe("teacher", model_name="smoke_teacher")
 
 
 def _card() -> str:
@@ -530,7 +570,7 @@ TRAIN_CONFIG = dict(mode="pathomic", task="grad", path_dim=128, omic_dim=128,
                     pallas_fusion="train")
 
 
-def _train_opt(Options, **kw):
+def _train_opt(**kw):
     return Options(**{**TRAIN_CONFIG, **kw})
 
 
@@ -612,13 +652,12 @@ def _train_path(card, gen, dev, n_steps=20, n_warm=3, n_prof=3,
     step, B5 12 times per step when paired and never otherwise.  Returns
     the state, the batch, the launches in the timed steps and the step as
     a function of nothing."""
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.ops import kron_fusion as kf
     from multimodal_learning_tpu_torch.ops import paired_conv as pc
     from multimodal_learning_tpu_torch.train.steps import (
         build_teacher_train_step)
 
-    opt = _train_opt(Options, paired_conv=paired)
+    opt = _train_opt(paired_conv=paired)
     state = _teacher_state(opt)
     batch = _train_batch(opt, gen, dev)
     train_step = build_teacher_train_step(opt)
@@ -713,12 +752,11 @@ def _train_cross_check(card, gen, dev, batch_size=4):
     docstring)."""
     import copy
 
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.models import define_model
     from multimodal_learning_tpu_torch.train import make_lr_schedule
     from multimodal_learning_tpu_torch.train import steps
 
-    opt = _train_opt(Options, compute_dtype="float32", dropout_rate=0.0,
+    opt = _train_opt(compute_dtype="float32", dropout_rate=0.0,
                      batch_size=batch_size)
     model = define_model(opt, generator=torch.Generator().manual_seed(SEED))
     batch = _train_batch(opt, gen, "cpu")
@@ -815,12 +853,11 @@ def _saliency_pass(state, batch, card, gen, dev, n=5, n_prof=3):
     kernels' time per call from the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.losses import nll_loss
     from multimodal_learning_tpu_torch.masking import (
         frozen_params, saliency_grads, superpixel_attention_mask)
     from multimodal_learning_tpu_torch.ops import kron_fusion as kf
-    opt = _train_opt(Options)
+    opt = _train_opt()
     model = state.model.eval()
     x_path = batch["path_views"][:, 0].to(torch.bfloat16) / 127.5 - 1.0
     x_omic = batch["omic"]
@@ -1089,28 +1126,13 @@ def _cv_drivers(card, n_train=64, n_test=32, epochs=2):
     return total
 
 
-# The MIA-2022 flow (``recipes/baseline.py`` of the JAX package): the
-# MICCAI student (``miccai_student``) distilled from a frozen pofusion
-# teacher, and the M3LR t-SVD teacher (``tsvd_teacher``), at the paper
-# width; the banks hold 256 rows.
-PAPER = dict(mode="pathomic", task="grad", path_dim=128, omic_dim=128,
-             mmhid=128, feat_dim=128, input_size_path=512, batch_size=16,
-             compute_dtype="bfloat16", pallas_fusion="train",
-             niter_decay=30)
-STUDENT_CONFIG = dict(PAPER, distill="crd", num_teachers=2,
-                      assign_weights=True, CE_grads=True,
-                      select_pos_mode="mid", pos_mode="multi_pos", nce_p=300,
-                      nce_p2=20, nce_k=700, nce_k2=512, alpha=1.0, beta=0.02,
-                      reg_type="none", beta1=0.9, n_data=256)
-TSVD_CONFIG = dict(PAPER, CRD_distill=0, pred_distill=1, tSVD_loss=True,
-                   n_views=4, tSVD_mode="pathomic", Lambda_global=0.1,
-                   mu=1e-5, pho=1.1, max_mu=1.0, aux_iter=1, init_type="max",
-                   beta1=0.5, n_data=256)
-DSCD_FLAGS = dict(distill="crd", num_teachers=2, assign_weights=True,
-                  CE_grads=True, select_pos_mode="hard",
-                  pos_mode="multi_pos", nce_p=300, nce_p2=20, nce_k=1024,
-                  nce_k2=1024, alpha=1.0, beta=0.02, reg_type="none",
-                  beta1=0.9, kd_T=1.0)
+# The MIA-2022 flow (``recipes/baseline.py``): the MICCAI student
+# (``miccai_student``) distilled from a frozen pofusion teacher, and the
+# M3LR t-SVD teacher (``tsvd_teacher``), at the paper width; the banks hold
+# 256 rows (the cut ``n_data=256``).
+STUDENT_CONFIG = _recipe("miccai_student", n_data=256)
+TSVD_CONFIG = _recipe("tsvd_teacher", n_data=256)
+DSCD_FLAGS = _recipe("dscd_student")
 # the flags of phase 17's and 27's CLI chains: one synthetic fold, paired
 MIA_CHAIN = dict(PAPER, paired_conv=True, synthetic_data=True,
                  synthetic_folds=1)
@@ -1261,7 +1283,6 @@ def _student_path(card, gen, dev, teacher_sd, teacher_bn="batch",
     teacher, 4 data gradients of the student) and never otherwise; finite
     losses, AEKD scale and gradients; the teacher's buffers bitwise
     unchanged."""
-    from multimodal_learning_tpu_torch.config import Options
 
     opt = Options(**STUDENT_CONFIG, teacher_bn=teacher_bn,
                   paired_conv=paired)
@@ -1292,7 +1313,6 @@ def _tsvd_path(card, gen, dev):
     the fold loop computes it: 4 windows of 5 steps.  B1 twice per step,
     the others never; ``loss_tsvd`` and both TNNs finite; mu grown by pho
     per refresh."""
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.train.steps import (
         build_teacher_train_step)
 
@@ -1335,7 +1355,6 @@ def _student_cross_check(card, gen, teacher_sd, batch_size=4, **flags):
     import copy
     import dataclasses
 
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.contrast import draw_pick
     from multimodal_learning_tpu_torch.models import define_model
     from multimodal_learning_tpu_torch.train import make_lr_schedule
@@ -1549,7 +1568,6 @@ def _zoo_paths(card, gen, dev, teacher_sd):
     step (the frozen teacher) and no other kernel, 0 host syncs.  HKD's
     first step must move the bank's batch rows, to norm 1, and no other
     row."""
-    from multimodal_learning_tpu_torch.config import Options
 
     out = {}
     for mode in ZOO_MODES:
@@ -1594,7 +1612,6 @@ def _svm_path(card, gen, dev, teacher_sd):
     once per step, exactly one host sync per step, in
     ``gradweight/svm.py`` (the gradients' copy to the host), finite weights
     summing to 1; and the host solve's time on such a stack."""
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.gradweight import find_optimal_svm
 
     opt = Options(**{**STUDENT_CONFIG, "loss_weighting": "SVM",
@@ -1629,11 +1646,10 @@ def _supcon_path(card, gen, dev):
     """Phase 25: the flagship teacher step of phase 7 with
     ``--supcon_distill 1``: one window of 5 steps, B1 twice per step, 0
     host syncs, ``loss_supcon`` finite and positive."""
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.train.steps import (
         build_teacher_train_step)
 
-    opt = _train_opt(Options, supcon_distill=1)
+    opt = _train_opt(supcon_distill=1)
     state = _teacher_state(opt)
     batch = _train_batch(opt, gen, dev)
     step = build_teacher_train_step(opt)
@@ -1660,21 +1676,13 @@ def _hkd_chain(card, root, n_train=64, n_test=32):
         "HKD chain", n_train // bs, -(-n_test // bs))
 
 
-# The MIA-2023 CLAT flow (``recipes/baseline.py`` of the JAX package): the
-# superpixel-masked stage-1 teacher (``clat_stage1``) and the stage-2
-# adaptive-teaching student (``clat_stage2``), at the paper width.  The
-# student's banks hold 8192 rows, more than nce_k + 1 = 4097, so that no
-# negative is cut.
-CLAT1_CONFIG = dict(PAPER, CRD_distill=0, pred_distill=1, masking=1,
-                    num_superpixels=100, Path_K=1, Omic_K=5, start_epoch=1,
-                    beta1=0.9, n_data=256)
-CLAT2_FLAGS = dict(distill="crd", num_teachers=2, assign_weights=True,
-                   CE_grads=True, loss_weighting="GK_refine",
-                   use_grads_thresh=True, grads_thresh=0.25,
-                   pos_mode="exact", pos_extra="neighbors", nce_p=6,
-                   nce_k=4096, max_discrep=1.0, start_reweight=40, alpha=1.0,
-                   beta=0.02, reg_type="none", beta1=0.9)
-CLAT2_CONFIG = dict(PAPER, **CLAT2_FLAGS, n_data=8192)
+# The MIA-2023 CLAT flow (``recipes/baseline.py``): the superpixel-masked
+# stage-1 teacher (``clat_stage1``) and the stage-2 adaptive-teaching
+# student (``clat_stage2``), at the paper width.  The student's banks hold
+# 8192 rows, more than nce_k + 1 = 4097, so that no negative is cut.
+CLAT1_CONFIG = _recipe("clat_stage1", n_data=256)
+CLAT2_FLAGS = _recipe("clat_stage2")
+CLAT2_CONFIG = dict(CLAT2_FLAGS, n_data=8192)
 # the kernels of a masked step, by a tag their profiler names hold
 MASKED_TAGS = (("B1 main pass (kron_gemm_kernel<true>)", "kron_gemm_kernel<true"),
                ("B2 main pass (kron_gemm_kernel<false>)",
@@ -1765,7 +1773,6 @@ def _masked_path(card, gen, dev, rois, labels, masking_bn="chain",
     the trunk) and never otherwise.  Host ms per step (median of windows),
     kernel ms, busy share, B1's, B2's, B4's and B5's shares, host syncs.
     Returns those and the state."""
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.train.steps import (
         build_teacher_train_step)
 
@@ -1831,7 +1838,6 @@ def _masked_cross_check(card, gen, rois, labels, batch_size=4):
     rtol 2e-3 / atol 5e-4."""
     import copy
 
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.data import augment
     from multimodal_learning_tpu_torch.models import define_model
     from multimodal_learning_tpu_torch.train import make_lr_schedule
@@ -1950,7 +1956,6 @@ def _clat_path(card, gen, dev, teacher_sd, pos_extra="neighbors",
     teacher's buffers bitwise unchanged."""
     from torch.nn import functional as F
 
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.models import define_model
     from multimodal_learning_tpu_torch.train import (make_lr_schedule,
                                                      student, student_clat)
@@ -2074,7 +2079,7 @@ def _clat_chain(card, n_train=64, n_test=32, teacher_epochs=2):
         return res
 
     with tempfile.TemporaryDirectory() as root:
-        e, plain = teacher_epochs, teacher["start_epoch"]
+        e, plain = teacher_epochs, Options(**teacher).start_epoch
         masked = e - plain
         run(train_cv_MT_SP_Masking.main, teacher, root,
             {"conv3x3": (12 * plain + 36 * masked) * steps + 4 * e * fwd,
@@ -2170,8 +2175,7 @@ def _time_conv(gen, dev, card, flush):
 # fusion type changed.
 DYN_CONFIG = dict(PAPER, fusion_type="mmdynamics", pred_distill=0,
                   CRD_distill=0, n_data=256)
-TEACHER_RECIPE = dict(PAPER, pred_distill=1, CRD_distill=0,
-                      cut_fuse_grad=True, beta1=0.9, n_data=256)
+TEACHER_RECIPE = _recipe("teacher", n_data=256)
 NEW_FUSIONS = ("polynomial_fusion", "LMF", "HFB")
 # launches of B5 per mmdynamics step under --paired_conv: 4 forwards of
 # the 64-channel stage and 4 data gradients (one forward, no EMA)
@@ -2185,7 +2189,6 @@ def _dynamics_path(card, gen, dev, paired=False):
     B5 ``DYN_B5_PER_STEP`` times per step under ``--paired_conv``; finite
     losses and gradients; 0 host syncs; the EMA model's parameters and
     buffers bitwise unchanged (the step never updates it)."""
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.train.steps import \
         build_mmdynamics_train_step
 
@@ -2216,7 +2219,6 @@ def _fusion_paths(card, gen, dev):
     ``NEW_FUSIONS``: one window of 5 steps each, no kernel of the port
     (their Kronecker products are an einsum, as in the JAX package), 0
     host syncs."""
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.train.steps import \
         build_teacher_train_step
 
@@ -2249,7 +2251,6 @@ def _dynamics_cross_check(card, gen, batch_size=4):
     the norm of the difference at 2e-2."""
     import copy
 
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.models import define_model
     from multimodal_learning_tpu_torch.train import make_lr_schedule
     from multimodal_learning_tpu_torch.train import steps
@@ -2312,7 +2313,6 @@ def _fusion_eval_cross_check(card, gen, batch_size=4):
     fusion type and of the mmdynamics model at full width, on the card
     (TF32 off) against the CPU from the same weights, every output at rtol
     2e-3 / atol 5e-4 (phase 5's tolerance)."""
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.models import define_model
     from multimodal_learning_tpu_torch.serve import make_infer_fn
 
@@ -2467,7 +2467,6 @@ def _released_files(root, gen):
     pofusion model (distinct model and EMA weights).  Returns the ``.npz``
     paths, the trunk's state dict and the EMA's."""
     from multimodal_learning_tpu_torch.cli import convert_torch
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.models import define_model
     opt = Options(**TEACHER_RECIPE)
     trunk = _perturb_bn(define_model(
@@ -2507,7 +2506,6 @@ def _pretrained_path(card, root, paths, trunk, n_train=64, n_test=32):
     True``: B1 twice and B5 12 times per step, B2 once and B5 4 times per
     eval forward."""
     from multimodal_learning_tpu_torch.cli import train_cv_MT
-    from multimodal_learning_tpu_torch.config import Options
     opt = Options(**TEACHER_RECIPE, pretrained_path=paths["trunk"],
                   init_type="max")
     state = _teacher_state(opt)
@@ -2579,7 +2577,6 @@ def _reinit_checks(card, paths, trunk):
     elements has the std of its JAX law within 5 % (the estimate's error
     is under 1.2 %), orthogonal kernels have Q^T Q = gain^2 I to 1e-4
     relative to gain^2."""
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.models import flax_from_state_dict
     for init_type in INIT_TYPES:
         opt = Options(**TEACHER_RECIPE, pretrained_path=paths["trunk"],
@@ -2623,7 +2620,6 @@ def _optimizer_paths(card, gen, dev, root, n_train=64, n_test=32):
     synthetic fold) up to its fold checkpoint, which must carry the CRD
     heads."""
     from multimodal_learning_tpu_torch.cli import train_cv_MT
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.utils import load_checkpoint
     from multimodal_learning_tpu_torch.train.steps import \
         build_teacher_train_step
@@ -2631,7 +2627,7 @@ def _optimizer_paths(card, gen, dev, root, n_train=64, n_test=32):
     for label, kw in (("adabound onecycle", dict(optimizer_type="adabound",
                                                  lr_policy="onecycle")),
                       ("adagrad", dict(optimizer_type="adagrad"))):
-        opt = _train_opt(Options, **kw)
+        opt = _train_opt(**kw)
         state = _teacher_state(opt)
         batch = _train_batch(opt, gen, dev)
         step = build_teacher_train_step(opt)
@@ -2671,7 +2667,6 @@ def _released_eval(card, root, paths, ema_sd, dev, n_test=32):
     of the same weights loaded by ``load_state_dict``."""
     from multimodal_learning_tpu_torch.cli import test_cv_MT
     from multimodal_learning_tpu_torch.cli.train_cv_MT import load_data
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.data.pipeline import (Loader,
                                                              PathomicDataset)
     from multimodal_learning_tpu_torch.eval import load_pred_test
@@ -2856,7 +2851,6 @@ def _exported_artifacts(card, root, ema_sd, gen, dev):
     artifact against eager, in turns."""
     import pickle
     from multimodal_learning_tpu_torch.cli import export_model, predict
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.models import (define_model,
                                                       flax_from_state_dict)
     from multimodal_learning_tpu_torch.serve import (load_exported,
@@ -2870,8 +2864,8 @@ def _exported_artifacts(card, root, ema_sd, gen, dev):
     counters = _counters()
     variants, runs, out = {}, [], {}
     for paired in (False, True):
-        opt = Options(**TEACHER_RECIPE, paired_conv=paired,
-                      model_name="export", exp_name="grad_15")
+        opt = Options(**{**TEACHER_RECIPE, "paired_conv": paired,
+                         "model_name": "export", "exp_name": "grad_15"})
         model = define_model(opt)
         model.load_state_dict(ema_sd, strict=True)
         eager = make_infer_fn(opt, model.to(dev))
@@ -2990,6 +2984,162 @@ def _exported_artifacts(card, root, ema_sd, gen, dev):
     return out
 
 
+# Phase 36: the ``teacher`` recipe through the offline evaluation chain,
+# cut to the CLIs' synthetic split (64 train + 32 test ROIs a fold, one
+# patch per patient), 2 folds and 2 epochs.  Seed 2020 gives each fold's
+# three 9-patch ROIs all three grades, so that ROI_evaluation's F1 of grade
+# IV is defined (the metrics raise without it, as scikit-learn's do).
+EVAL_CHAIN = _recipe("teacher", synthetic_data=True, synthetic_folds=2,
+                     niter_decay=2, seed=2020, model_name="smoke_eval")
+METRICS = ("rocauc", "ap", "f1_micro", "f1_gradeIV")
+
+
+def _eval_chain(card, n_train=64, n_test=32):
+    """Phase 36: ``cli.train_cv_MT`` -> ``cli.export_model`` ->
+    ``cli.test_cv_MT`` -> ``cli.evaluation_GBMLGG`` -> ``cli.ROI_evaluation``
+    on ``EVAL_CHAIN`` as a user runs them, in a temporary directory.  Each
+    driver's B1/B2 launches must equal the counts of its steps and
+    forwards; each fold's ``max`` and ``mean`` patient-level rows must
+    equal test_cv_MT's metrics of that fold exactly (one patch per
+    patient); ROI_evaluation's rows must equal ``roi_evaluation`` of the
+    dumped probabilities (NaN equal to NaN).  Returns each driver's
+    launches."""
+    from multimodal_learning_tpu_torch.cli import (ROI_evaluation,
+                                                   evaluation_GBMLGG,
+                                                   export_model, test_cv_MT,
+                                                   train_cv_MT)
+    from multimodal_learning_tpu_torch.eval.analysis import (load_pred_test,
+                                                             roi_evaluation)
+
+    cfg = EVAL_CHAIN
+    folds, epochs, bs = (cfg["synthetic_folds"], cfg["niter_decay"],
+                         cfg["batch_size"])
+    steps, fwd = n_train // bs, -(-n_test // bs)
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        def drive(main, want, what):
+            res, launches[what] = _run_cli(main, cfg, root, want,
+                                           f"eval chain: {what}", card)
+            return res
+
+        drive(train_cv_MT.main,
+              {"kron_train_fwd": 2 * epochs * steps * folds,
+               "kron_fwd": epochs * fwd * folds},
+              f"train_cv_MT ({folds} folds of {epochs * steps} steps and "
+              f"{epochs} evals of {n_test} ROIs)")
+        written = drive(export_model.main, {"kron_fwd": folds},
+                        "export_model (one check forward a fold)")
+        tested = drive(test_cv_MT.main, {"kron_fwd": fwd * folds},
+                       f"test_cv_MT ({folds} folds)")
+        agg = drive(evaluation_GBMLGG.main, {}, "evaluation_GBMLGG")
+        rois = drive(ROI_evaluation.main, {}, "ROI_evaluation")
+        if len(written) != folds or not all(map(os.path.exists, written)):
+            raise RuntimeError(f"export_model wrote {written}")
+        ckpt_dir = os.path.join(root, "grad_15", cfg["model_name"])
+        dumped = [load_pred_test(os.path.join(
+            ckpt_dir, f"{cfg['model_name']}_{k}_pred_test.pkl"))
+            for k in range(1, folds + 1)]
+    for branch in ("fuse", "path", "omic"):
+        if len(tested[branch]) != folds:
+            raise RuntimeError(f"test_cv_MT gave {tested[branch]}")
+        for i, want in enumerate(tested[branch]):
+            want = [float(v) for v in want]
+            if not np.isfinite(want).all():
+                raise RuntimeError(f"fold {i + 1} {branch}: {want}")
+            for how in ("max", "mean"):
+                got = [agg[branch, how]["per_fold"][m][i] for m in METRICS]
+                if got != want:
+                    raise RuntimeError(
+                        f"evaluation_GBMLGG fold {i + 1} {branch}/{how} "
+                        f"{got} differs from test_cv_MT's {want}")
+            if not np.isfinite(dumped[i]["probs"][branch]).all():
+                raise RuntimeError(f"fold {i + 1} {branch} probabilities "
+                                   "are not finite")
+        for i, got in enumerate(rois[branch]):
+            want = roi_evaluation(np.asarray(dumped[i]["probs"][branch]),
+                                  np.asarray(dumped[i]["gt"]),
+                                  patches_per_roi=9, n_classes=3)
+            if not np.array_equal(np.asarray(got), np.asarray(want),
+                                  equal_nan=True):
+                raise RuntimeError(f"ROI_evaluation fold {i + 1} {branch} "
+                                   f"{got} differs from {want}")
+    print("eval chain: every fold's max and mean patient rows equal "
+          "test_cv_MT's metrics exactly, and ROI_evaluation's rows equal "
+          "roi_evaluation of the dumped probabilities; patient-level "
+          "AUC/AP/F1/F1-IV mean +- 95% CI " + "; ".join(
+              f"{b}/{a} " + " ".join(
+                  f"{m:.4f}+-{c:.4f}" for m, c in zip(r["mean"], r["ci95"]))
+              for (b, a), r in agg.items()) + f" ({card})")
+    return launches
+
+
+# Phase 37: the sweep's four groups at its own tiny dims (``_TINY``: 64^2,
+# widths 16, ``pallas_fusion`` off, so no kernel of the port launches)
+SWEEP_GROUPS = {"omic": ("omic SNN (config 2)",),
+                "teacher": ("pofusion teacher (config 3)",
+                            "MICCAI student (config 3)"),
+                "tsvd": ("DSCD student (config 4)",),
+                "clat": ("CLAT student (config 5)",)}
+
+
+def _sweep_phase(card, folds=2):
+    """Phase 37: ``cli.sweep --folds 2`` over all four groups with its report
+    in a temporary directory; the drivers' own output goes to a file, whose
+    tail is printed if the sweep raises.  Every group's sections must hold
+    finite fold means in [0, 1] ([-1, 1] for kappa and MCC), and the report
+    the patient-level table.
+    No kernel may launch.  Returns the wall s."""
+    import contextlib
+    from multimodal_learning_tpu_torch.cli import sweep
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    with tempfile.TemporaryDirectory() as root:
+        report, log = (os.path.join(root, n) for n in ("report.md",
+                                                       "drivers.log"))
+        t0 = time.perf_counter()
+        with open(log, "w") as fh, contextlib.redirect_stdout(fh):
+            try:
+                sections = sweep.main([
+                    "--folds", str(folds), "--configs",
+                    ",".join(SWEEP_GROUPS), "--out_dir",
+                    os.path.join(root, "ckpt"), "--report", report])
+                torch.cuda.synchronize()
+            except BaseException:
+                fh.flush()
+                with open(log) as src:
+                    sys.stderr.write(src.read()[-6000:])
+                raise
+        wall = time.perf_counter() - t0
+        with open(report) as fh:
+            text = fh.read()
+    got = {name: c.launches for name, c in counters.items()}
+    print(f"sweep: cli.sweep --folds {folds} over {len(SWEEP_GROUPS)} groups "
+          f"in {wall:.2f} s, launches {got} ({card})")
+    print(text)
+    if any(got.values()):
+        raise RuntimeError(f"the sweep at pallas_fusion off launched {got}")
+    titles = [t for t, _ in sections]
+    want = [t for group in SWEEP_GROUPS.values() for t in group]
+    if titles != want:
+        raise RuntimeError(f"the sweep's sections are {titles}, not {want}")
+    for title, rows in sections:
+        if not rows:
+            raise RuntimeError(f"{title}: no fold table")
+        for name, header, mean, std in rows:
+            # Cohen's kappa and the MCC lie in [-1, 1], the rest in [0, 1]
+            low = np.array([-1.0 if h in ("kappa", "mcc") else 0.0
+                            for h in header])
+            if not (np.isfinite(mean).all() and np.isfinite(std).all()
+                    and ((low <= mean) & (mean <= 1)).all()):
+                raise RuntimeError(f"{title} {name}: means {mean}, std {std}")
+    if ("## patient-level aggregation" not in text
+            or "| fuse/max |" not in text):
+        raise RuntimeError("the sweep's report has no patient-level table")
+    return wall
+
+
 def _write_inputs(root, size, d_omic, gen):
     from PIL import Image
     img_dir = os.path.join(root, "rois")
@@ -3010,7 +3160,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from multimodal_learning_tpu_torch.cli import export_model, predict
-    from multimodal_learning_tpu_torch.config import Options
     from multimodal_learning_tpu_torch.models import (define_model,
                                                       flax_from_state_dict)
     from multimodal_learning_tpu_torch.ops import _build, kron_fusion
@@ -3058,15 +3207,7 @@ def main() -> int:
     conv_errs = _check_conv_kernel(gen, dev, card)
 
     # 4. the serving path end to end at the teacher's full width
-    # (recipes/baseline.py "teacher" in the JAX package)
-    opt = Options(mode="pathomic", task="grad", fusion_type="pofusion",
-                  model_name="smoke_teacher", exp_name="grad_15",
-                  path_dim=128, omic_dim=128, mmhid=128, feat_dim=128,
-                  input_size_omic=80, input_size_path=512, label_dim=3,
-                  act_type="LSM", skip=0, batch_size=16,
-                  compute_dtype="bfloat16", pallas_fusion="train",
-                  cut_fuse_grad=True, pred_distill=1, CRD_distill=0,
-                  beta1=0.9, niter_decay=30)
+    opt = Options(**SERVE_CONFIG)
     model = define_model(opt, generator=gen)
     with torch.no_grad():
         for m in model.modules():
@@ -3346,6 +3487,14 @@ def main() -> int:
     stamp(35)
     served = _exported_artifacts(card, released_root.name, ema_sd, gen, dev)
     released_root.cleanup()
+    torch.cuda.empty_cache()
+    # 36. the "teacher" recipe through the offline evaluation chain
+    stamp(36)
+    eval_chain = _eval_chain(card)
+    torch.cuda.empty_cache()
+    # 37. the synthetic sweep over the four recipe groups
+    stamp(37)
+    sweep_s = _sweep_phase(card)
     print("A18/A8 steps per step (bf16, 512^2, batch 16): " + "; ".join(
         f"{name}: host {r['host_ms']:.3f} ms, kernels "
         f"{r.get('kernel_ms', float('nan')):.3f} ms, busy "
@@ -3388,7 +3537,10 @@ def main() -> int:
             "released test_cv_MT --pretrained_path": released_launches[
                 "kron_fwd"],
             "exported artifacts, predict in a fresh python3 (4 x 2 "
-            "forwards)": served["predict_launches"]["kron_fwd"]},
+            "forwards)": served["predict_launches"]["kron_fwd"],
+            "offline evaluation chain (train_cv_MT evals, export_model, "
+            "test_cv_MT; 2 folds)": sum(
+                c["kron_fwd"] for c in eval_chain.values())},
         "kron_train_fwd": {
             "teacher train step (20 steps)": b1_launches,
             "student step, teacher_bn batch (20 steps)":
@@ -3415,7 +3567,9 @@ def main() -> int:
             "pretrained train_cv_MT": pre_launches["kron_train_fwd"],
             "adabound onecycle and adagrad steps (2 x 5 steps)": sum(
                 r["launches"]["kron_train_fwd"] for r in optims.values()),
-            "adagrad train_cv_MT": adagrad_cli["kron_train_fwd"]},
+            "adagrad train_cv_MT": adagrad_cli["kron_train_fwd"],
+            "offline evaluation chain train_cv_MT (2 folds)": sum(
+                c["kron_train_fwd"] for c in eval_chain.values())},
         "kron_bwd_dw": {},
         "kron_bwd_dvec": {
             "saliency call": sal_launches["kron_bwd_dvec"],
@@ -3510,8 +3664,8 @@ def main() -> int:
         "fp32_max_abs_err": conv_errs[torch.float32]})
     for k in kernels:
         k["launched_by"] = launched_by[k["name"]]
-    print(f"[chip_smoke] phases 1-35 in {time.perf_counter() - t_run:.1f} s "
-          f"({card})")
+    print(f"[chip_smoke] phases 1-37 in {time.perf_counter() - t_run:.1f} s "
+          f"(the sweep {sweep_s:.1f} s; {card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

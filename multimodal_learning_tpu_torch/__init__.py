@@ -7,9 +7,9 @@ each Pallas TPU kernel with a CUDA kernel written for Hopper (``sm_90a``),
 keeping a plain PyTorch version of each kernel beside it for the CPU and as
 the test oracle.
 
-Ported so far (the pofusion teacher's serving path, train step and CV
-drivers, the masked teacher's saliency masks, and the MIA-2022 flow: the
-MICCAI/DSCD students and the M3LR t-SVD teacher):
+Ported: every module of the JAX package but ``parallel/`` (the device
+mesh), with every flow of the three papers, offline evaluation and the
+BASELINE recipes and sweep:
 
 - ``config``    the ``Options`` flag surface (own copy)
 - ``models``    ResNet18 (with ``--paired_conv``), ResNet34/50, MaxNet,
@@ -21,7 +21,8 @@ MICCAI/DSCD students and the M3LR t-SVD teacher):
                 backward (``csrc/kron_bwd.cu``); the stage-1 3x3
                 convolution (``csrc/conv3x3.cu``)
 - ``data``      CV splits, contrast sampling, the host loaders with device
-                prefetch, the native JPEG decoder, on-device augmentation
+                prefetch, the native JPEG decoder, on-device augmentation,
+                the TCGA CSV cleaning (pandas, library-level)
 - ``losses``    NLL, Cox, L1, pred-KD, DistillKL, SP, orth
 - ``masking``   the superpixel saliency masks of the masked teacher
 - ``contrast``  the CRD memory banks (classic, and the students' v2/v3/v4
@@ -34,13 +35,18 @@ MICCAI/DSCD students and the M3LR t-SVD teacher):
                 AdaBound, Adagrad and the LR schedules (plateau and
                 onecycle included), EMA, and the
                 train-state bridge to the JAX package
-- ``eval``      grading and survival metrics (numpy/scipy), prediction dumps
+- ``eval``      grading and survival metrics (numpy/scipy), prediction dumps,
+                patient-level aggregation and CIs, ROI and survival
+                analysis (pandas), the Cox fitter, the plots (matplotlib)
+- ``recipes``   the BASELINE presets (``get_recipe``)
 - ``utils``     fold checkpoints in the JAX package's pickle layout,
                 train-state snapshots, the JSONL metrics log
 - ``serve``     the eval forward and its ``torch.export`` artifact
 - ``cli``       ``train_cv_MT``, ``test_cv_MT``, ``train_cv_path_multi_MT``,
-                ``test_cv_path``, ``export_model``, ``predict``,
-                ``convert_torch``
+                ``test_cv_path``, ``train_cv_MT_SP_Masking``,
+                ``train_cv_path_CLAT``, ``export_model``, ``predict``,
+                ``convert_torch``, ``evaluation_GBMLGG``,
+                ``ROI_evaluation``, ``sweep``
 """
 
 __version__ = "0.4.0"

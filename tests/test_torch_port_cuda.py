@@ -814,6 +814,61 @@ def test_new_fusions_eval_forward_on_card_matches_cpu(cuda, fusion_type):
                                    atol=5e-4, msg=k)
 
 
+
+def _card_vs_cpu(cuda, make, inputs, train, what):
+    """``make(generator)`` twice from one seed, its fp32 forward on the card
+    (TF32 off) against the CPU on the same inputs at the whole-model
+    tolerance (rtol 2e-3 / atol 5e-4); no kernel of the port launches."""
+    cpu = make(torch.Generator().manual_seed(7)).train(train)
+    card = make(torch.Generator().manual_seed(7)).train(train).to(cuda)
+    start = _launches()
+    with torch.no_grad():
+        want = cpu(*inputs)
+        got = card(*[x.to(cuda) for x in inputs])
+    torch.cuda.synchronize()
+    assert {k: v - start[k] for k, v in _launches().items()} == dict.fromkeys(
+        start, 0)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=5e-4,
+                               msg=what)
+    if train:       # the BatchNorms' new running statistics
+        for (name, a), b in zip(card.named_buffers(), cpu.buffers()):
+            torch.testing.assert_close(a.cpu(), b, rtol=2e-3, atol=5e-4,
+                                       msg=f"{what} {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("variant", ["A", "B"])
+def test_trilinear_fusion_on_card_matches_cpu(cuda, variant, train):
+    """``TrilinearFusion``, which no card path runs (no model of the port
+    builds it, as in the JAX package), in eval and in train mode (dropout
+    0: the two devices draw other masks)."""
+    from multimodal_learning_tpu_torch.models import TrilinearFusion
+    g = torch.Generator().manual_seed(8)
+    xs = [torch.randn(6, w, generator=g) for w in (16, 12, 16)]
+    _card_vs_cpu(cuda, lambda gen: TrilinearFusion(
+        variant=variant, dim1=16, dim2=12, dim3=16, mmhid=16,
+        dropout_rate=0.0, generator=gen), xs, train, f"trilinear {variant}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("decoder", ["ResnetDecoder", "MaxNetDecoder"])
+def test_decoders_on_card_match_cpu(cuda, decoder, train):
+    """The reconstruction decoders, which no card path runs, in eval and in
+    train mode (the MaxNet decoder at dropout 0: the two devices draw other
+    AlphaDropout masks)."""
+    from multimodal_learning_tpu_torch import models
+    z = torch.randn(4, 16, generator=torch.Generator().manual_seed(9))
+    if decoder == "ResnetDecoder":
+        make = lambda gen: models.ResnetDecoder(latent_dim=16, generator=gen)
+    else:
+        make = lambda gen: models.MaxNetDecoder(omic_dim=16, output_dim=80,
+                                                dropout_rate=0.0,
+                                                generator=gen)
+    _card_vs_cpu(cuda, make, [z], train, decoder)
+
 # ------------------------------------------------ registered ops and export
 
 @pytest.mark.cuda

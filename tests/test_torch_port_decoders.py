@@ -22,7 +22,8 @@ element; in train mode its five BatchNorms normalise by the batch's
 variance, which flax computes as E[x^2] - E[x]^2 and torch in two
 passes, so there rtol 1e-3 / atol 1e-4 and the biases of the
 convolutions that feed a BatchNorm (exact gradient 0) are held at 0 in
-both packages at 1e-4 of their layer's weight gradient.
+both packages at 1e-4 of their layer's weight gradient.  The decoder's
+train mode is also run in float64 on both sides, at rtol 1e-10.
 """
 import numpy as np
 import pytest
@@ -47,6 +48,7 @@ from multimodal_learning_tpu_torch.train import make_lr_schedule
 from multimodal_learning_tpu_torch.train.freeze import (count_frozen,
                                                         freeze_mask,
                                                         masked_optimizer)
+from test_torch_port_fusions import _close_trees64, _to64, x64  # noqa: F401
 from test_torch_port_models import _assert_tree_equal, _perturbed
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -106,6 +108,44 @@ def test_resnet_decoder_matches_jax(train):
                 np.testing.assert_allclose(buf.numpy(), want_sd[name], **tol,
                                            err_msg=name)
 
+
+
+def test_resnet_decoder_train_float64_matches_jax(x64):
+    """The train-mode case that ``DECODER_BN_TOL`` loosens, in float64 on
+    both sides: the transposed convolutions' summation order and the
+    BatchNorm variance formulas leave float64 rounding, held at rtol 1e-10
+    (atol 1e-12 of each layer's largest element; see
+    ``test_torch_port_fusions._close_trees64``)."""
+    rng = np.random.default_rng(4)
+    z = rng.normal(size=(4, 16))
+    cot = rng.normal(size=(4, 128, 128, 3))
+    jmod = jm.ResnetDecoder(latent_dim=16)
+    params, stats = _perturbed(
+        jmod.init(jax.random.PRNGKey(1), jnp.asarray(z, jnp.float32),
+                  train=False), 2)                 # float32 values
+    port = pm.ResnetDecoder(latent_dim=16)
+    port.load_state_dict(state_dict_from_flax(params, stats), strict=True)
+    port.double().train()
+    params, stats = _to64(params), _to64(stats)
+
+    def loss(p, x):
+        out, new = jmod.apply({"params": p, "batch_stats": stats}, x,
+                              train=True, mutable=["batch_stats"])
+        return jnp.sum(out * cot), (out, new)
+
+    (_, (want, new_vars)), (g_params, g_z) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))(params, jnp.asarray(z))
+    tz = torch.tensor(z, requires_grad=True)
+    got = port(tz)
+    assert got.dtype == torch.float64 and want.dtype == jnp.float64
+    (got * torch.from_numpy(cot)).sum().backward()
+    _close_trees64({"out": got.detach().numpy(), "z": tz.grad.numpy()},
+                   {"out": want, "z": g_z}, "forward")
+    grad_sd = dict(port.state_dict())
+    grad_sd.update({n: p.grad for n, p in port.named_parameters()})
+    _close_trees64(flax_from_state_dict(grad_sd)[0], g_params, "grads")
+    _close_trees64(flax_from_state_dict(port.state_dict())[1],
+                   new_vars["batch_stats"], "batch_stats")
 
 def test_maxnet_decoder_matches_jax():
     rng = np.random.default_rng(7)

@@ -28,7 +28,10 @@ another order in XLA and in torch; Adam's first moment per tensor at rtol
 2e-3 with an atol of 2e-3 of its largest element, but the ResNet trunk's
 (all of ``path_net`` but the ``fc_new`` heads) by the norm of the
 difference at 1e-1 of the JAX tensor's norm, for the ReLU-kink flips that
-the student test's docstring measures.
+the student test's docstring measures.  The polynomial fusion's train
+mode is also run in float64 on both sides (``jax.enable_x64``, the port's
+``.double()``), where the BatchNorm formulas leave float64 rounding only:
+rtol 1e-10.
 """
 import numpy as np
 import pytest
@@ -144,6 +147,78 @@ def test_fusion_forward_and_gradients_match_jax(case, train):
                 np.testing.assert_allclose(buf.numpy(), want_sd[name],
                                            **tol, err_msg=name)
 
+
+
+@pytest.fixture
+def x64():
+    """JAX in float64 for one test."""
+    with jax.enable_x64(True):
+        yield
+
+
+def _to64(tree):
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
+
+
+def _close_trees64(got, want, what):
+    """Two flax-layout trees at rtol 1e-10, each leaf with an atol of 1e-12
+    of the largest element of its layer (the biases that feed a BatchNorm
+    have an exact gradient of 0, so both sides hold float64 noise)."""
+    got = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+    want = jax.tree_util.tree_flatten_with_path(_to64(want))[0]
+    assert len(got) == len(want), what
+    layer_max = {}
+    for path, w in want:
+        layer_max[path[:-1]] = max(layer_max.get(path[:-1], 0.0),
+                                   float(np.abs(w).max()))
+    for path, w in want:
+        g = np.asarray(got[path])
+        assert g.dtype == np.float64, (what, path)
+        np.testing.assert_allclose(g, w, rtol=1e-10,
+                                   atol=1e-12 * layer_max[path[:-1]],
+                                   err_msg=f"{what} {jax.tree_util.keystr(path)}")
+
+
+@pytest.mark.parametrize("case", [c for c in CASES
+                                  if c.startswith("polynomial")])
+def test_polynomial_fusion_train_float64_matches_jax(case, x64):
+    """The train-mode case that ``BN_TRAIN_TOL`` loosens, in float64 on
+    both sides: what is left of the two packages' BatchNorm variance
+    formulas is float64 rounding, held at rtol 1e-10 (atol: see
+    ``_close_trees64``).  Gradients and statistics are compared in the
+    flax layout, which the bridge fills without a cast to float32."""
+    jmod, port, widths = _cases()[case]
+    rng = np.random.default_rng(len(case) + 10)
+    xs = [rng.normal(size=(6, w)) for w in widths]
+    cot = rng.normal(size=(6, 7))
+    variables = jmod.init({"params": jax.random.PRNGKey(3),
+                           "dropout": jax.random.PRNGKey(4)},
+                          *map(jnp.asarray, xs), train=False)
+    params, stats = _perturbed(variables, 5)    # float32 values
+    port.load_state_dict(state_dict_from_flax(params, stats), strict=True)
+    port.double().train()
+    params, stats = _to64(params), _to64(stats)
+
+    def loss(p, *x):
+        out = jmod.apply({"params": p, "batch_stats": stats}, *x,
+                         train=True, mutable=["batch_stats"])
+        return jnp.sum(out[0] * cot), out
+
+    (_, (want, new_vars)), grads = jax.jit(jax.value_and_grad(
+        loss, argnums=tuple(range(len(xs) + 1)), has_aux=True))(
+            params, *map(jnp.asarray, xs))
+    txs = [torch.tensor(x, requires_grad=True) for x in xs]
+    got = port(*txs)
+    assert got.dtype == torch.float64 and want.dtype == jnp.float64
+    (got * torch.from_numpy(cot)).sum().backward()
+    _close_trees64({"out": got.detach().numpy(),
+                    "inputs": [t.grad.numpy() for t in txs]},
+                   {"out": want, "inputs": list(grads[1:])}, "forward")
+    grad_sd = dict(port.state_dict())
+    grad_sd.update({n: p.grad for n, p in port.named_parameters()})
+    _close_trees64(flax_from_state_dict(grad_sd)[0], grads[0], "grads")
+    _close_trees64(flax_from_state_dict(port.state_dict())[1],
+                   new_vars["batch_stats"], "batch_stats")
 
 def _pathomic_pair(fusion_type, seed):
     dims = dict(path_dim=16, omic_dim=16, mmhid=16, label_dim=3,
