@@ -199,7 +199,20 @@ Phases, each of which raises on failure (nothing is caught):
     student, t-SVD -> DSCD student, CLAT) at the sweep's own tiny widths,
     where ``pallas_fusion`` is off and no kernel launches: the five
     sections with finite fold means and the patient-level table; its wall
-    s.
+    s;
+38. ``--data_parallel`` (``parallel/mesh.py``) at world size 1 on NCCL, a
+    group of one joined in this process: the first fp32 flagship teacher
+    step (dropout 0.1) and MICCAI student step (dropout 0) against the
+    same steps without data parallel at phase 9's tolerances; a window of
+    5 bf16 steps of each (B1 twice and once per step), with host and
+    kernel ms, busy share and NCCL kernels per step, against the steps
+    without data parallel in turns; the global train-mode BatchNorm's
+    forward and backward against cuDNN's at the stem's shape; then
+    ``cli.train_cv_MT --data_parallel -1`` in ranks started by
+    ``parallel.launch`` (one per card) on one synthetic fold, 2 epochs of
+    4 steps: B1 16 times and B2 4 times in rank 0, and ``cli.test_cv_MT``
+    reproducing its final eval exactly; with two cards or more, the
+    world-2 first step against world 1, else a line saying it was not run.
 
 Phases 4, 14-17, 19-22, 27, 29 and 32-36 take their configurations from
 the port's recipes (``recipes/baseline.py``) with the cuts named beside
@@ -221,6 +234,7 @@ CUDA is unavailable or the port's package is not beside this script.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -634,6 +648,8 @@ def _profile_steps(step_fn, card, n, top=8, label="train",
         ms = sum(ev.self_device_time_total for ev in events
                  if tag in ev.key) / n / 1e3
         out[tag] = ms
+        out[f"{tag} count"] = sum(ev.count for ev in events
+                                  if tag in ev.key) / n
         print(f"profile {label}: {what} {ms:.4f} ms per step, "
               f"{100 * ms / dev_ms:.2f}% of kernel time ({card})")
     for ev in sorted(events, key=lambda ev: -ev.self_device_time_total)[:top]:
@@ -3155,6 +3171,284 @@ def _write_inputs(root, size, d_omic, gen):
     return img_dir, csv
 
 
+# Phase 38: data parallel (``parallel/mesh.py``) at world size 1 on NCCL
+DP_CLI_STEPS, DP_CLI_EVALS = 8, 4   # 2 epochs of 4 steps; 2 evals of 2
+
+
+def _dp_states(opt, student_of=None, n=2):
+    """``n`` equal ``(state, step)`` pairs from seed 2019 for ``opt``: the
+    teacher's (``init_teacher_state``) or, with ``student_of`` (a teacher
+    state dict), the MICCAI student's on a frozen teacher
+    (``_frozen_student``)."""
+    dev = torch.device("cuda")
+    if student_of is None:
+        from multimodal_learning_tpu_torch.train.steps import (
+            build_teacher_train_step)
+        step = build_teacher_train_step(opt)
+        return [(_teacher_state(opt), step) for _ in range(n)]
+    return [_frozen_student(opt, student_of, dev)[:2] for _ in range(n)]
+
+
+def _dp_moments(state):
+    adam = state.optimizer.optimizer.state
+    named = {f"model.{n}": p for n, p in state.model.named_parameters()}
+    named.update({f"embeds.{n}": p
+                  for n, p in state.embeds.named_parameters()})
+    return {n: adam[p]["exp_avg"].float().cpu() for n, p in named.items()}
+
+
+def _dp_hold(card, label, plain, sharded):
+    """Phase 9's card tolerances between two first steps (each ``(state,
+    metrics)``): the loss parts and the BatchNorm buffers of the model and
+    the EMA at rtol 2e-3 / atol 5e-4; Adam's first moments of the ResNet
+    trunk by the norm of the difference at 2e-2, the others at rtol 2e-3
+    and an atol of 2e-3 of each tensor's largest element, but the biases
+    that feed a train-mode BatchNorm (exact gradient 0)."""
+    (sa, ma), (sb, mb) = plain, sharded
+    for k in ma:
+        torch.testing.assert_close(mb[k].float().cpu(), ma[k].float().cpu(),
+                                   rtol=2e-3, atol=5e-4, msg=f"{label} {k}")
+    for what in ("model", "ema_model"):
+        bufs = dict(getattr(sa, what).named_buffers())
+        for n, b in getattr(sb, what).named_buffers():
+            if n.endswith(("running_mean", "running_var")):
+                torch.testing.assert_close(b, bufs[n], rtol=2e-3, atol=5e-4,
+                                           msg=f"{label} {what}.{n}")
+    mu_a, mu_b = _dp_moments(sa), _dp_moments(sb)
+    worst_el = worst_norm = 0.0
+    for n, want in mu_a.items():
+        diff = mu_b[n] - want
+        trunk = n.startswith(("model.path_net.", "model.layer", "model.conv1",
+                              "model.bn1")) and "fc_new" not in n
+        if trunk:
+            rel = (diff.norm() / want.norm().clamp_min(1e-30)).item()
+            if rel > 2e-2:
+                raise AssertionError(f"{label} exp_avg {n}: |dp - plain| / "
+                                     f"|plain| = {rel:.3e} > 2e-2")
+            worst_norm = max(worst_norm, rel)
+        elif not n.endswith(("encoder1.0.bias", "encoder2.0.bias",
+                             "fc_new1.0.bias")):
+            atol = max(1e-6, 2e-3 * want.abs().max().item())
+            torch.testing.assert_close(mu_b[n], want, rtol=2e-3, atol=atol,
+                                       msg=f"{label} exp_avg {n}")
+            worst_el = max(worst_el, (diff.abs().max() / want.abs().max()
+                                      .clamp_min(1e-30)).item())
+    print(f"{label}: loss parts " + ", ".join(
+        f"{k} {float(mb[k]):.6f}/{float(ma[k]):.6f}" for k in ma
+        if ma[k].numel() == 1) + f"; BatchNorm buffers agree; exp_avg "
+          f"outside the trunk worst max|diff| / max|plain| = {worst_el:.3e},"
+          f" trunk worst |diff| / |plain| = {worst_norm:.3e} ({card})")
+
+
+def _dp_first_steps(card, gen, init, teacher_sd):
+    """The first fp32 step of the flagship teacher (dropout 0.1: the
+    default generator reseeded before each step, B1's mask from the state's
+    generator) and of the MICCAI student (dropout 0), with and without data
+    parallel at world 1 (an NCCL group of one, joined here), held by
+    :func:`_dp_hold`.  Returns the teacher's batch on the host and its
+    metrics at dropout 0, for the world-2 comparison."""
+    from multimodal_learning_tpu_torch import parallel
+    dev = torch.device("cuda")
+    cases = (("teacher", _train_opt(compute_dtype="float32"), None),
+             ("MICCAI student", Options(**{
+                 **STUDENT_CONFIG, "compute_dtype": "float32",
+                 "dropout_rate": 0.0}), teacher_sd))
+    with parallel.process_group(0, 1, dev, init):
+        for name, opt, sd in cases:
+            batch = (_train_batch if sd is None else _student_batch)(
+                opt, gen, dev)
+            runs = []
+            for (state, step), sharded in zip(_dp_states(opt, sd),
+                                              (False, True)):
+                torch.cuda.manual_seed(SEED)
+                with (parallel.unsharded() if not sharded
+                      else contextlib.nullcontext()):
+                    runs.append((state, step(state, batch, 0.1)[1]))
+            _dp_hold(card, f"data parallel world 1 vs plain, fp32 {name} "
+                     "first step", *runs)
+            del runs
+        opt0 = _train_opt(compute_dtype="float32", dropout_rate=0.0)
+        batch = _train_batch(opt0, gen, "cpu")
+        (state, step), = _dp_states(opt0, n=1)
+        world1 = step(state, {k: v.to(dev) for k, v in batch.items()},
+                      0.1)[1]
+    torch.cuda.empty_cache()
+    return batch, {k: v.cpu() for k, v in world1.items()}
+
+
+def _dp_world_rank(batch):
+    """A rank of phase 38's world-2 check: the fp32 flagship teacher's first
+    step (dropout 0) from seed 2019 on this rank's rows of ``batch``."""
+    from multimodal_learning_tpu_torch.parallel import active, process_slice
+    dp = active()
+    opt = _train_opt(compute_dtype="float32", dropout_rate=0.0)
+    (state, step), = _dp_states(opt, n=1)
+    rows = {k: process_slice(v, dp.world, dp.rank).to(dp.device)
+            for k, v in batch.items()}
+    return {k: v.cpu() for k, v in step(state, rows, 0.1)[1].items()}
+
+
+def _dp_cli_rank(argv):
+    """A rank of phase 38's CLI run: ``train_cv_MT.main(argv)`` in the
+    launched group, and this process's kernel launches."""
+    from multimodal_learning_tpu_torch.cli import train_cv_MT
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    res = train_cv_MT.main(argv)
+    torch.cuda.synchronize()
+    return res, {n: c.launches for n, c in counters.items()}
+
+
+def _time_bn(card, init):
+    """Train-mode BatchNorm forward + backward at the stem's shape (16,
+    64, 256, 256) bf16 channels-last, the port's global one (NCCL group of
+    one) against cuDNN's, in turns (a, b, b, a; 10 calls each, CUDA
+    events).  Returns the two ms."""
+    from multimodal_learning_tpu_torch import parallel
+    from multimodal_learning_tpu_torch.models.common import BatchNorm2d
+    dev = torch.device("cuda")
+    bn = BatchNorm2d(64).to(dev)
+    x = torch.randn(16, 64, 256, 256, device=dev, dtype=torch.bfloat16
+                    ).to(memory_format=torch.channels_last).requires_grad_()
+    g = torch.randn_like(x)
+
+    def call():
+        bn(x).backward(g)
+
+    ms = {"global": [], "cudnn": []}
+    with parallel.process_group(0, 1, dev, init):
+        for name in ("global", "cudnn", "cudnn", "global", "global"):
+            ctx = (parallel.unsharded() if name == "cudnn"
+                   else contextlib.nullcontext())
+            with ctx:
+                call()
+                s, e = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                s.record()
+                for _ in range(10):
+                    call()
+                e.record()
+                torch.cuda.synchronize()
+            ms[name].append(s.elapsed_time(e) / 10)
+    ms = {k: min(v) for k, v in ms.items()}
+    print(f"BatchNorm2d train forward + backward at (16, 64, 256, 256) bf16 "
+          f"channels-last: global (one all-gather, one all-reduce) "
+          f"{ms['global']:.4f} ms, cuDNN {ms['cudnn']:.4f} ms "
+          f"({ms['global'] / ms['cudnn']:.2f}x; {card})")
+    return ms
+
+
+def _data_parallel(card, gen, teacher_sd):
+    """Phase 38: ``--data_parallel`` on the card.  At world size 1 on NCCL
+    (a group of one joined in this process): the first fp32 teacher and
+    student steps against the same steps without data parallel
+    (:func:`_dp_first_steps`); a window of 5 flagship teacher steps and one
+    of the MICCAI student's, bf16, B1 twice and once per step, with host
+    and kernel ms, busy share and NCCL launches per step, each against the
+    step without data parallel in turns; the global BatchNorm against
+    cuDNN's (:func:`_time_bn`).  Then ``train_cv_MT --data_parallel -1``
+    (every card, one rank each, launched by ``parallel.launch``) of one
+    synthetic fold, 2 epochs of 4 steps: B1 16 times and B2 4 times in
+    the ranks; ``test_cv_MT`` must reproduce its final eval exactly.  With
+    two cards or more, the world-2 first step against world 1."""
+    from multimodal_learning_tpu_torch import parallel
+    from multimodal_learning_tpu_torch.cli import test_cv_MT
+    from multimodal_learning_tpu_torch.parallel import mesh
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as root:
+        batch, world1 = _dp_first_steps(
+            card, gen, "file://" + os.path.join(root, "s1"), teacher_sd)
+        out = {"bn": _time_bn(card, "file://" + os.path.join(root, "s2"))}
+        nccl = ("NCCL", "nccl")
+        with parallel.process_group(0, 1, dev,
+                                    "file://" + os.path.join(root, "s3")):
+            for name, opt, sd, per in (
+                    ("teacher", _train_opt(), None, 2),
+                    ("MICCAI student", Options(**STUDENT_CONFIG), teacher_sd,
+                     1)):
+                b = (_train_batch if sd is None else _student_batch)(
+                    opt, gen, dev)
+                (s_plain, step_plain), (s_dp, step_dp) = _dp_states(opt, sd)
+
+                def plain():
+                    with parallel.unsharded():
+                        return step_plain(s_plain, b, 0.1)
+
+                def sharded():
+                    return step_dp(s_dp, b, 0.1)
+
+                label = f"data-parallel {name} step (world 1, NCCL)"
+                sharded()
+                calls = dict.fromkeys(mesh.CALLS, 0)
+                mesh.CALLS.update(calls)
+                sharded()
+                calls = dict(mesh.CALLS)
+                out[name] = _step_window(
+                    card, label, s_dp, sharded, {"kron_train_fwd": per},
+                    kernels=(B1_TAG, nccl))
+                out[name]["collectives"] = calls
+                out[name, "plain"] = _profile_steps(
+                    plain, card, 3, label=f"{name} step without data "
+                    "parallel", kernels=(B1_TAG, nccl))
+                _ab_steps(card, ((f"{name} plain", plain),
+                                 (f"{name} data parallel", sharded)), n=5)
+                print(f"{label}: collectives per step {calls}, "
+                      f"{out[name].get('nccl count', 0):g} NCCL kernels "
+                      f"per step ({card})")
+                del s_plain, s_dp, plain, sharded
+                torch.cuda.empty_cache()
+        cfg = {**TRAIN_CONFIG, "niter_decay": 2, "synthetic_data": True,
+               "synthetic_folds": 1, "model_name": "smoke_dp",
+               "checkpoints_dir": root}
+        flags = [a for k, v in cfg.items() for a in (f"--{k}", str(v))]
+        world = torch.cuda.device_count()
+        t0 = time.perf_counter()
+        ranks = parallel.launch(_dp_cli_rank, world,
+                                (flags + ["--data_parallel", "-1"],),
+                                deadline=300)
+        cli_s = time.perf_counter() - t0
+        res, launches = ranks[0]
+        want = {"kron_train_fwd": 2 * DP_CLI_STEPS,
+                "kron_fwd": DP_CLI_EVALS}
+        print(f"train_cv_MT --data_parallel -1: {world} rank(s) in "
+              f"{cli_s:.2f} s, rank 0's launches {launches} ({card})")
+        for k, n in want.items():
+            if launches[k] != n:
+                raise RuntimeError(f"train_cv_MT --data_parallel -1 launched "
+                                   f"{k} {launches[k]} times, expected {n}")
+        res = res[1]
+        counters = _counters()
+        counters["kron_fwd"].launches = 0
+        tested = test_cv_MT.main(flags)
+        if counters["kron_fwd"].launches != DP_CLI_EVALS // 2:
+            raise RuntimeError("test_cv_MT did not run its eval through B2")
+        for name in ("fuse", "path", "omic"):
+            if tested[name] != [res[f"metrics_{name}"]]:
+                raise RuntimeError(
+                    f"test_cv_MT's {name} metrics {tested[name]} differ from "
+                    "the data-parallel run's final eval "
+                    f"{res[f'metrics_{name}']}")
+        print("train_cv_MT --data_parallel -1: test_cv_MT reproduces the "
+              "final eval exactly; AUC/AP/F1/F1-IV", {
+                  k: [round(float(v), 5) for v in res[f"metrics_{k}"]]
+                  for k in ("fuse", "path", "omic")}, f"({card})")
+    if world >= 2:
+        got = parallel.launch(_dp_world_rank, 2, (batch,), deadline=300)[0]
+        for k, v in world1.items():
+            torch.testing.assert_close(got[k].float(), v.float(), rtol=2e-3,
+                                       atol=5e-4, msg=f"world 2 {k}")
+        print("data parallel world 2 vs world 1, fp32 teacher first step: "
+              "loss parts agree at rtol 2e-3 / atol 5e-4", {
+                  k: f"{float(got[k]):.6f}/{float(v):.6f}"
+                  for k, v in world1.items()}, f"({card})")
+    else:
+        print(f"data parallel world 2: not run, this machine has {world} "
+              f"card ({card})")
+    out.update(cli_s=cli_s, cli_launches=launches)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3495,6 +3789,26 @@ def main() -> int:
     # 37. the synthetic sweep over the four recipe groups
     stamp(37)
     sweep_s = _sweep_phase(card)
+    torch.cuda.empty_cache()
+    # 38. data parallel at world size 1 on NCCL, and train_cv_MT
+    # --data_parallel -1 in launched ranks
+    stamp(38)
+    dp = _data_parallel(card, gen, teacher_sd)
+    print("A19 steps per step (bf16, 512^2, batch 16), data parallel at "
+          "world 1 / without: " + "; ".join(
+              f"{name}: host {dp[name]['host_ms']:.3f} ms, kernels "
+              f"{dp[name].get('kernel_ms', float('nan')):.3f} / "
+              f"{dp[name, 'plain'].get('kernel_ms', float('nan')):.3f} ms,"
+              f" busy {100 * dp[name].get('busy', float('nan')):.1f}% / "
+              f"{100 * dp[name, 'plain'].get('busy', float('nan')):.1f}%, "
+              f"collectives {dp[name]['collectives']}, NCCL kernels "
+              f"{dp[name].get('nccl count', float('nan')):g}"
+              f" ({dp[name].get('nccl', float('nan')):.3f} ms), "
+              f"{dp[name]['syncs']:g} syncs"
+              for name in ("teacher", "MICCAI student")) + "; BatchNorm "
+          f"fwd+bwd global {dp['bn']['global']:.4f} ms / cuDNN "
+          f"{dp['bn']['cudnn']:.4f} ms; train_cv_MT --data_parallel -1 "
+          f"{dp['cli_s']:.2f} s ({card})")
     print("A18/A8 steps per step (bf16, 512^2, batch 16): " + "; ".join(
         f"{name}: host {r['host_ms']:.3f} ms, kernels "
         f"{r.get('kernel_ms', float('nan')):.3f} ms, busy "
@@ -3540,7 +3854,10 @@ def main() -> int:
             "forwards)": served["predict_launches"]["kron_fwd"],
             "offline evaluation chain (train_cv_MT evals, export_model, "
             "test_cv_MT; 2 folds)": sum(
-                c["kron_fwd"] for c in eval_chain.values())},
+                c["kron_fwd"] for c in eval_chain.values()),
+            "train_cv_MT --data_parallel -1 evals (rank 0) and "
+            "test_cv_MT": dp["cli_launches"]["kron_fwd"]
+            + DP_CLI_EVALS // 2},
         "kron_train_fwd": {
             "teacher train step (20 steps)": b1_launches,
             "student step, teacher_bn batch (20 steps)":
@@ -3569,7 +3886,13 @@ def main() -> int:
                 r["launches"]["kron_train_fwd"] for r in optims.values()),
             "adagrad train_cv_MT": adagrad_cli["kron_train_fwd"],
             "offline evaluation chain train_cv_MT (2 folds)": sum(
-                c["kron_train_fwd"] for c in eval_chain.values())},
+                c["kron_train_fwd"] for c in eval_chain.values()),
+            "data-parallel teacher step, world 1 (5 steps)":
+                dp["teacher"]["launches"]["kron_train_fwd"],
+            "data-parallel student step, world 1 (5 steps)":
+                dp["MICCAI student"]["launches"]["kron_train_fwd"],
+            "train_cv_MT --data_parallel -1 (rank 0)":
+                dp["cli_launches"]["kron_train_fwd"]},
         "kron_bwd_dw": {},
         "kron_bwd_dvec": {
             "saliency call": sal_launches["kron_bwd_dvec"],
@@ -3664,7 +3987,7 @@ def main() -> int:
         "fp32_max_abs_err": conv_errs[torch.float32]})
     for k in kernels:
         k["launched_by"] = launched_by[k["name"]]
-    print(f"[chip_smoke] phases 1-37 in {time.perf_counter() - t_run:.1f} s "
+    print(f"[chip_smoke] phases 1-38 in {time.perf_counter() - t_run:.1f} s "
           f"(the sweep {sweep_s:.1f} s; {card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,11 @@ package's layout) and prints running mean metrics per branch
         --mode pathomic --pred_distill 1 --CRD_distill 0 --cut_fuse_grad True \
         --model_name stage1_pathomic_teacher --beta1 0.9
 
-Runs on CUDA; ``MML_PLATFORM=cpu`` runs it on the CPU.  One process, one
-card: ``MML_MULTIHOST=1`` is refused (ROADMAP A19).
+Runs on CUDA; ``MML_PLATFORM=cpu`` runs it on the CPU.  ``--data_parallel
+N`` (-1: every visible card) trains on N ranks, one per card (NCCL; gloo
+on the CPU), which the driver spawns itself; under ``torchrun`` with
+``MML_MULTIHOST=1`` the job's processes are the ranks.  Rank 0 alone
+prints, writes and returns the results (``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -20,9 +23,11 @@ import sys
 
 import numpy as np
 
-from ..config import parse_args
+from ..config import parse_args, print_options
 from ..data.splits import (load_cv_splits, make_synthetic_splits,
                            split_pickle_path)
+from ..parallel.mesh import (is_writer, launch_for,
+                             maybe_init_distributed, print0)
 from ..train.loop import train_teacher
 from ._platform import select_device
 
@@ -40,11 +45,15 @@ def load_data(opt, patches: bool = False):
 
 
 def main(argv=None):
-    if os.environ.get("MML_MULTIHOST") == "1":
-        raise NotImplementedError("MML_MULTIHOST=1 (multi-host training) is "
-                                  "not ported yet: ROADMAP A19")
     device = select_device()
-    opt = parse_args(argv)
+    maybe_init_distributed(device)
+    argv = sys.argv[1:] if argv is None else argv
+    opt = parse_args(argv, save=False)
+    launched = launch_for(opt, device, main, (argv,))
+    if launched is not None:
+        return launched
+    if is_writer():
+        print_options(opt)
     data = load_data(opt)
     patches = None
     if not opt.synthetic_data:
@@ -55,9 +64,9 @@ def main(argv=None):
     results = {}
     branch_metrics = {"fuse": [], "path": [], "omic": []}
     for k in sorted(data["cv_splits"].keys()):
-        print(f"*******************************************\n"
-              f"************** SPLIT ({k}) **************\n"
-              f"*******************************************")
+        print0(f"*******************************************\n"
+               f"************** SPLIT ({k}) **************\n"
+               f"*******************************************")
         res, _ = train_teacher(opt, data, k, patches_data=patches,
                                device=device)
         results[k] = res
@@ -66,12 +75,12 @@ def main(argv=None):
                 m = res.get(f"metrics_{name}")
                 if m is not None:
                     branch_metrics[name].append(m)
-                    print(f"[{name}] running mean AUC/AP/F1/F1-IV:",
-                          np.array(branch_metrics[name]).mean(0))
+                    print0(f"[{name}] running mean AUC/AP/F1/F1-IV:",
+                           np.array(branch_metrics[name]).mean(0))
         else:
-            print(f"fold {k} C-index:",
-                  {n: res.get(f"cindex_{n}") for n in branch_metrics})
-    print(f"finished {len(results)} folds")
+            print0(f"fold {k} C-index:",
+                   {n: res.get(f"cindex_{n}") for n in branch_metrics})
+    print0(f"finished {len(results)} folds")
     return results
 
 

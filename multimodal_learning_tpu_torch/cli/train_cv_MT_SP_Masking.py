@@ -12,8 +12,11 @@ step once ``epoch > --start_epoch``.
         --Path_K 1 --Omic_K 5 --pred_distill 1 --CRD_distill 0 \
         --model_name clat_teacher --beta1 0.9
 
-Runs on CUDA; ``MML_PLATFORM=cpu`` runs it on the CPU.  One process, one
-card: ``MML_MULTIHOST=1`` is refused (ROADMAP A19).
+Runs on CUDA; ``MML_PLATFORM=cpu`` runs it on the CPU.  ``--data_parallel
+N`` (-1: every visible card) trains on N ranks, one per card (NCCL; gloo
+on the CPU), which the driver spawns itself; under ``torchrun`` with
+``MML_MULTIHOST=1`` the job's processes are the ranks.  Rank 0 alone
+prints, writes and returns the results (``parallel/mesh.py``).
 """
 from __future__ import annotations
 

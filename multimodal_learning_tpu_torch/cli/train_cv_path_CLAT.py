@@ -15,8 +15,11 @@ checkpoints in the same layout and prints the running mean and std of the
         --nce_p 6 --nce_k 4096 --max_discrep 1 --fixed_model clat_teacher \
         --model_name clat_student
 
-Runs on CUDA; ``MML_PLATFORM=cpu`` runs it on the CPU.  One process, one
-card: ``MML_MULTIHOST=1`` is refused (ROADMAP A19).
+Runs on CUDA; ``MML_PLATFORM=cpu`` runs it on the CPU.  ``--data_parallel
+N`` (-1: every visible card) trains on N ranks, one per card (NCCL; gloo
+on the CPU), which the driver spawns itself; under ``torchrun`` with
+``MML_MULTIHOST=1`` the job's processes are the ranks.  Rank 0 alone
+prints, writes and returns the results (``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -25,19 +28,25 @@ import sys
 
 import numpy as np
 
-from ..config import parse_args
+from ..config import parse_args, print_options
 from ..data.splits import load_cv_splits, split_pickle_path
+from ..parallel.mesh import (is_writer, launch_for,
+                             maybe_init_distributed, print0)
 from ..train.student_clat import train_clat_student
 from ._platform import select_device
 from .train_cv_MT import load_data
 
 
 def main(argv=None):
-    if os.environ.get("MML_MULTIHOST") == "1":
-        raise NotImplementedError("MML_MULTIHOST=1 (multi-host training) is "
-                                  "not ported yet: ROADMAP A19")
     device = select_device()
-    opt = parse_args(argv)
+    maybe_init_distributed(device)
+    argv = sys.argv[1:] if argv is None else argv
+    opt = parse_args(argv, save=False)
+    launched = launch_for(opt, device, main, (argv,))
+    if launched is not None:
+        return launched
+    if is_writer():
+        print_options(opt)
     data = load_data(opt)
     patches = None
     if not opt.synthetic_data:
@@ -47,7 +56,7 @@ def main(argv=None):
 
     results, fold_ext = {}, []
     for k in sorted(data["cv_splits"].keys()):
-        print(f"*************** SPLIT ({k}) ***************")
+        print0(f"*************** SPLIT ({k}) ***************")
         res, _, ext = train_clat_student(opt, data, k, patches_data=patches,
                                          device=device)
         results[k] = res
@@ -55,8 +64,8 @@ def main(argv=None):
             fold_ext.append(ext)
             keys = sorted(ext)
             arr = np.array([[m[kk] for kk in keys] for m in fold_ext])
-            print("9-metric mean:", dict(zip(keys, arr.mean(0).round(4))))
-            print("9-metric std: ", dict(zip(keys, arr.std(0).round(4))))
+            print0("9-metric mean:", dict(zip(keys, arr.mean(0).round(4))))
+            print0("9-metric std: ", dict(zip(keys, arr.std(0).round(4))))
     return results
 
 

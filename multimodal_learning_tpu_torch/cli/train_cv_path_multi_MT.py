@@ -14,8 +14,11 @@ F1-IV (``train_cv_path_multi_MT.py:121-124``).
         --nce_p 300 --nce_p2 20 --nce_k 1024 --nce_k2 1024 -a 1 -b 0.02 \
         --fixed_model m3lr_teacher --model_name dscd_student
 
-Runs on CUDA; ``MML_PLATFORM=cpu`` runs it on the CPU.  One process, one
-card: ``MML_MULTIHOST=1`` is refused (ROADMAP A19).
+Runs on CUDA; ``MML_PLATFORM=cpu`` runs it on the CPU.  ``--data_parallel
+N`` (-1: every visible card) trains on N ranks, one per card (NCCL; gloo
+on the CPU), which the driver spawns itself; under ``torchrun`` with
+``MML_MULTIHOST=1`` the job's processes are the ranks.  Rank 0 alone
+prints, writes and returns the results (``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -24,19 +27,25 @@ import sys
 
 import numpy as np
 
-from ..config import parse_args
+from ..config import parse_args, print_options
 from ..data.splits import load_cv_splits, split_pickle_path
+from ..parallel.mesh import (is_writer, launch_for,
+                             maybe_init_distributed, print0)
 from ..train.student import train_student
 from ._platform import select_device
 from .train_cv_MT import load_data
 
 
 def main(argv=None):
-    if os.environ.get("MML_MULTIHOST") == "1":
-        raise NotImplementedError("MML_MULTIHOST=1 (multi-host training) is "
-                                  "not ported yet: ROADMAP A19")
     device = select_device()
-    opt = parse_args(argv)
+    maybe_init_distributed(device)
+    argv = sys.argv[1:] if argv is None else argv
+    opt = parse_args(argv, save=False)
+    launched = launch_for(opt, device, main, (argv,))
+    if launched is not None:
+        return launched
+    if is_writer():
+        print_options(opt)
     data = load_data(opt)
     patches = None
     if not opt.synthetic_data:
@@ -46,14 +55,14 @@ def main(argv=None):
 
     results, fold_metrics = {}, []
     for k in sorted(data["cv_splits"].keys()):
-        print(f"*************** SPLIT ({k}) ***************")
+        print0(f"*************** SPLIT ({k}) ***************")
         res, _, _ = train_student(opt, data, k, patches_data=patches,
                                   device=device)
         results[k] = res
         if res.get("metrics_path") is not None:
             fold_metrics.append(res["metrics_path"])
             arr = np.array(fold_metrics)
-            print("path metrics mean:", arr.mean(0), "std:", arr.std(0))
+            print0("path metrics mean:", arr.mean(0), "std:", arr.std(0))
     return results
 
 

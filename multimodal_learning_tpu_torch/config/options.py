@@ -200,7 +200,7 @@ class Options:
     # --------------------------------------------------- TPU-build additions
     seed: int = 2019                       # reference seeds torch/random with 2019
     #                                        (train_test_MT.py:43-46)
-    data_parallel: int = 0                 # data-mesh devices: 0 = off
+    data_parallel: int = 0                 # data-parallel ranks: 0 = off
     #                                        (single device), -1 = all
     #                                        devices, N = first N devices;
     #                                        batch_size must divide by N
@@ -318,8 +318,9 @@ DEAD_FLAGS = {
     "pooling_ratio": "graph branch, vestigial in the reference",
     "GNN": "graph branch, vestigial in the reference",
     # -------- N/A on this backend / subsumed by the TPU design
-    "gpu_ids": "CUDA DataParallel device list; the TPU build shards via "
-               "--data_parallel over a jax mesh (parallel/mesh.py)",
+    "gpu_ids": "CUDA DataParallel device list; the port trains on "
+               "--data_parallel torch.distributed ranks, one per card "
+               "(parallel/mesh.py)",
     "s_dim": "CRD embed input width; flax infers it from the feature "
              "(contrast/crd.py Embed) so it cannot disagree with the model",
     "t_dim": "CRD teacher embed input width; inferred likewise",

@@ -29,6 +29,8 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import draw_rows
+
 _GRAY = (0.299, 0.587, 0.114)   # ITU-R 601-2 luma, as PIL's convert("L")
 _RGB2YIQ = ((0.299, 0.587, 0.114),
             (0.596, -0.274, -0.322),
@@ -164,9 +166,11 @@ def draw_views(gen: Optional[torch.Generator], b: int, n_views: int,
                ) -> List[Tuple[Flips, Optional[Jitter]]]:
     """The flips and (unless ``jitter`` is False) jitter factors of
     ``n_views`` independent views, view by view, as ``augment_view`` draws
-    each."""
-    return [(draw_flips(gen, b, device),
-             draw_jitter(gen, b, device) if jitter else None)
+    each.  Under a data group they are drawn for the global batch and
+    sliced to the rank's ``b`` rows (``parallel.draw_rows``)."""
+    return [(draw_rows(lambda n: draw_flips(gen, n, device), b),
+             draw_rows(lambda n: draw_jitter(gen, n, device), b)
+             if jitter else None)
             for _ in range(n_views)]
 
 

@@ -37,6 +37,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import process_slice
 from .sampling import ContrastSampler
 
 
@@ -150,11 +151,18 @@ class PathomicDataset:
 
 class Loader:
     """Iterates batches of host numpy dicts, decoding in a thread pool.
-    ``close()`` shuts the pool down."""
+    ``close()`` shuts the pool down.
+
+    With ``world`` > 1 (a data-parallel rank) every rank iterates the same
+    global batches of ``batch_size`` in the same order, draws the crop
+    seeds and contrast samples for the whole batch (so the generators stay
+    in step), and decodes and returns only its rows ``rank`` of
+    ``world`` (``parallel.process_slice``): the rows of the world-1 batch."""
 
     def __init__(self, dataset: PathomicDataset, batch_size: int,
                  shuffle: bool, drop_last: bool, n_views: int = 1,
-                 workers: int = 4, seed: int = 0):
+                 workers: int = 4, seed: int = 0, rank: int = 0,
+                 world: int = 1):
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle
@@ -164,6 +172,7 @@ class Loader:
             if dataset.mode != "omic" else None
         self.rng = np.random.default_rng(seed)
         self.epoch = 0
+        self.rank, self.world = rank, world
 
     def __len__(self):
         if self.drop_last:
@@ -176,13 +185,19 @@ class Loader:
 
     def _make_batch(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
         ds = self.ds
+        mine = lambda x: process_slice(x, self.world, self.rank)
+        sample_idx = (ds.sampler.draw_batch(idx) if ds.sampler is not None
+                      else None)
+        seeds = (self.rng.integers(0, 2 ** 63, size=len(idx))
+                 if ds.mode != "omic" else None)
+        idx = mine(idx)
         batch = {
             "omic": ds.X_omic[idx],
             "e": ds.e[idx], "t": ds.t[idx], "g": ds.g[idx],
             "index": idx.astype(np.int32),
         }
-        if ds.mode != "omic":
-            seeds = self.rng.integers(0, 2 ** 63, size=len(idx))
+        if seeds is not None:
+            seeds = mine(seeds)
             with_mask = ds.superpixels > 0
 
             def job(args):
@@ -198,8 +213,8 @@ class Loader:
                     np.int32)
             else:
                 batch["path_views"] = np.stack(out)  # [B, V, S, S, 3]
-        if ds.sampler is not None:
-            batch["sample_idx"] = ds.sampler.draw_batch(idx)
+        if sample_idx is not None:
+            batch["sample_idx"] = mine(sample_idx)
         return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:

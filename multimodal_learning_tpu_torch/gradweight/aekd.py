@@ -30,6 +30,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ..parallel.mesh import active, all_reduce_
+
 
 def feature_grads(losses: Sequence[torch.Tensor], feat: torch.Tensor
                   ) -> List[torch.Tensor]:
@@ -103,7 +105,8 @@ def gk_refine_param_space(losses: Sequence[torch.Tensor],
     cosine-Gram row sums of each loss's gradient with respect to
     ``params`` (the caller leaves out the classifier head, ``fc_new2``);
     KD losses first, CE last.  A parameter a loss does not reach counts
-    as a zero gradient."""
+    as a zero gradient.  Under a data group a rank's gradients are its
+    share of the global ones, so they are averaged over the ranks first."""
     flat = []
     for loss in losses:
         gs = torch.autograd.grad(loss, list(params), retain_graph=True,
@@ -111,7 +114,11 @@ def gk_refine_param_space(losses: Sequence[torch.Tensor],
         flat.append(torch.cat([
             (torch.zeros_like(p) if g is None else g).reshape(-1).float()
             for g, p in zip(gs, params)]))
-    return _cos_gram(torch.stack(flat).detach()).sum(dim=1)
+    grads = torch.stack(flat).detach()
+    dp = active()
+    if dp is not None:
+        grads = all_reduce_(grads) / dp.world
+    return _cos_gram(grads).sum(dim=1)
 
 
 def gk_refine_thresh_weights(all_grads: Sequence[torch.Tensor],

@@ -22,6 +22,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel.mesh import GlobalBatchNorm, active
+
 
 def _fan_in(w: torch.Tensor) -> int:
     # torch layout: [out, in, *kernel] -> in * prod(kernel)
@@ -81,9 +83,17 @@ class _FlaxRunningVar:
     ``r' = (1-m) r + m n/(n-1) v`` is then turned into flax's
     ``(1-m) r + m v = r' (n-1)/n + (1-m) r / n`` from the old ``r``, so no
     second pass over the activations is needed.  The state_dict keys are
-    torch's."""
+    torch's.
+
+    Under a data group (``parallel.active()``) train mode normalises by
+    the global batch's statistics (``parallel.GlobalBatchNorm``) and folds
+    them, with n the global count, into the running statistics by the same
+    law."""
 
     def forward(self, x):
+        dp = active()
+        if dp is not None and self.training:
+            return self._global_forward(x, dp)
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         self._check_input_dim(x)
@@ -96,6 +106,20 @@ class _FlaxRunningVar:
             self.running_var.copy_(var * ((n - 1) / n)
                                    + self.running_var * ((1.0 - m) / n))
             self.num_batches_tracked.add_(1)
+        return y
+
+    def _global_forward(self, x, dp):
+        self._check_input_dim(x)
+        ones = torch.ones(x.shape[1], device=x.device)
+        weight = self.weight if self.weight is not None else ones
+        bias = self.bias if self.bias is not None else 0.0 * ones
+        y, mean, var = GlobalBatchNorm.apply(x, weight, bias, self.eps, dp)
+        if self.track_running_stats:
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
         return y
 
 

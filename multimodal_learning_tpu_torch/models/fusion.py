@@ -41,6 +41,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.kron_fusion import kron_matmul, kron_matmul_dropout
+from ..parallel.mesh import draw_rows
 from .common import BatchNorm1d, init_linear_, max_init_
 
 
@@ -149,7 +150,9 @@ class _KronEncoder1(nn.Module):
     Kronecker vector, as ``nn.Dropout`` would, from ``self.generator`` (a
     ``torch.Generator`` on the tensors' device, which the train state sets;
     the device's default generator when None), and ones when the rate is 0,
-    as the JAX module does."""
+    as the JAX module does.  Under a data group the mask is drawn for the
+    global batch and sliced to the rank's rows (``parallel.draw_rows``),
+    as the JAX module draws one mask for the sharded batch."""
 
     def __init__(self, d1p: int, d2p: int, mmhid: int, dropout_rate: float,
                  pallas_eval: bool, pallas_train: bool = False,
@@ -166,14 +169,14 @@ class _KronEncoder1(nn.Module):
         if self.pallas_eval and not self.training:
             return kron_matmul(o1, o2, self.weight, self.bias)
         if self.pallas_train and self.training:
-            shape = (o1.shape[0], self.weight.shape[1])
+            width = self.weight.shape[1]
             keep = 1.0 - self.drop.p
             if self.drop.p > 0.0:
-                maskf = torch.bernoulli(
-                    torch.full(shape, keep, device=o1.device),
-                    generator=self.generator) / keep
+                maskf = draw_rows(lambda n: torch.bernoulli(
+                    torch.full((n, width), keep, device=o1.device),
+                    generator=self.generator) / keep, o1.shape[0])
             else:
-                maskf = torch.ones(shape, device=o1.device)
+                maskf = torch.ones((o1.shape[0], width), device=o1.device)
             return kron_matmul_dropout(o1.float(), o2.float(), self.weight,
                                        self.bias, maskf)
         return F.linear(self.drop(_kron(o1, o2)), self.weight, self.bias)

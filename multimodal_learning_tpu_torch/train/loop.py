@@ -29,7 +29,13 @@ switches to the masked step once ``epoch > --start_epoch``
 ``build_mmdynamics_train_step`` (JAX ``loop.py:180-181``); its metrics are
 ``loss`` and ``correct_fuse`` and its eval the fused branch alone.
 
-Refused, naming its ROADMAP item: ``--data_parallel`` above 1 (A19).
+``--data_parallel`` N (or -1, every visible device) trains on N ranks
+(``parallel/mesh.py``): called outside a rank, the driver launches them
+and returns rank 0's result.  Each rank loads its rows of every global
+batch and evaluates the whole test set (so the ``--test_augment``
+generator and the plateau tracker stay in step); every rank loads a
+``--resume`` snapshot after a barrier; only rank 0 writes snapshots,
+checkpoints and ``metrics.jsonl`` and logs.
 """
 from __future__ import annotations
 
@@ -45,6 +51,8 @@ from ..eval.metrics import (accuracy_cox, concordance_index, cox_log_rank,
                             grading_metrics, one_hot)
 from ..models.factory import define_model, is_dynamics
 from ..models.import_flax import flax_from_state_dict
+from ..parallel.mesh import (barrier, is_writer, launch_for,
+                             setup_data_parallel)
 from ..utils.checkpoint import (load_train_state, save_checkpoint,
                                 save_train_state)
 from ..utils.logging import MetricsLogger
@@ -57,10 +65,18 @@ from .steps import (build_eval_step, build_mmdynamics_train_step,
 _BRANCHES = ("fuse", "path", "omic")
 
 
-def _refuse_unported(opt) -> None:
-    if opt.data_parallel > 1:
-        raise NotImplementedError(
-            "--data_parallel > 1: ROADMAP A19 is not ported yet")
+def _quiet(*args, **kwargs) -> None:
+    """The log of a rank that is not rank 0."""
+
+
+def rank_setup(opt, fold: int, dev, log):
+    """A driver's data-parallel set-up in this process (``parallel.
+    setup_data_parallel``): ``(device, rank, world, log)``, with the rank's
+    device and ``log`` silenced on every rank but 0."""
+    dp = setup_data_parallel(opt, opt.seed + fold)
+    if dp is None:
+        return dev, 0, 1, log
+    return dp.device, dp.rank, dp.world, log if is_writer() else _quiet
 
 
 def _fetch(tensors):
@@ -159,9 +175,15 @@ def train_teacher(opt, data: Dict, fold: int,
                   patches_data: Optional[Dict] = None, log=print,
                   device=None) -> Tuple[Dict, Dict]:
     """One fold of teacher training on ``device`` (CUDA when None).
-    Returns ``(final_eval, best_info)``."""
-    _refuse_unported(opt)
+    Returns ``(final_eval, best_info)``.  Under ``--data_parallel`` outside
+    a rank it launches the ranks (``data``, ``patches_data`` and ``log``
+    must pickle) and returns rank 0's result."""
     dev = resolve_device(device)
+    launched = launch_for(opt, dev, train_teacher,
+                          (opt, data, fold, patches_data, log, device))
+    if launched is not None:
+        return launched
+    dev, rank, world, log = rank_setup(opt, fold, dev, log)
     split = data["cv_splits"][fold]
     need_contrast = opt.CRD_distill == 1 or opt.distill == "crd"
     masking = _use_masking(opt)
@@ -173,7 +195,7 @@ def train_teacher(opt, data: Dict, fold: int,
     # the EMA distils the masked forwards on (data_loaders_MT_SP.py:446-453)
     loaders = [Loader(train_ds, opt.batch_size, shuffle=True, drop_last=True,
                       n_views=4 if masking else 2, workers=opt.host_workers,
-                      seed=opt.seed + fold),
+                      seed=opt.seed + fold, rank=rank, world=world),
                Loader(test_ds, opt.batch_size, shuffle=False,
                       drop_last=False, n_views=1, workers=opt.host_workers,
                       seed=opt.seed)]
@@ -216,7 +238,9 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
     total_epochs = opt.niter + opt.niter_decay
     best = {"acc": 0.0, "epoch": -1}
     ckpt_dir = os.path.join(opt.checkpoints_dir, opt.exp_name, opt.model_name)
-    mlog = MetricsLogger(ckpt_dir, run_name=f"teacher_fold{fold}")
+    writer = is_writer()
+    mlog = MetricsLogger(ckpt_dir, run_name=f"teacher_fold{fold}",
+                         enabled=writer)
     final_eval = None
 
     # mid-fold resume from the latest snapshot (full train state incl.
@@ -224,6 +248,8 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
     snap_path = os.path.join(ckpt_dir, f"{opt.model_name}_{fold}_state.pt")
     start_epoch = opt.epoch_count
     snap_extra = None
+    if opt.resume and opt.data_parallel:
+        barrier()   # rank 0 may still be writing the snapshot
     if opt.resume and os.path.exists(snap_path):
         done_epoch, snap_extra = load_train_state(snap_path, state)
         start_epoch = done_epoch + 1
@@ -266,7 +292,8 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
             # ReduceLROnPlateau on the eval loss (networks_new.py:122)
             state.optimizer.lr_scale = plateau.step(res["loss"])
 
-        if opt.snapshot_every > 0 and epoch % opt.snapshot_every == 0:
+        if (writer and opt.snapshot_every > 0
+                and epoch % opt.snapshot_every == 0):
             save_train_state(snap_path, state, epoch,
                              extra={"plateau": plateau.state_dict()}
                              if plateau else None)
@@ -279,10 +306,12 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
                 "cindex_path", res.get("cindex_omic", 0.0)))
         if epoch > 15 and test_acc > best["acc"]:  # :295-307
             best = {"acc": test_acc, "epoch": epoch}
-            save_checkpoint(
-                os.path.join(ckpt_dir, f"{opt.model_name}_{fold}_best.pt"),
-                fold_payload(opt, fold, total_epochs, state,
-                              res.get("metrics_fuse")))
+            if writer:
+                save_checkpoint(
+                    os.path.join(ckpt_dir,
+                                 f"{opt.model_name}_{fold}_best.pt"),
+                    fold_payload(opt, fold, total_epochs, state,
+                                 res.get("metrics_fuse")))
 
         mlog.log({"epoch": epoch,
                   "train_loss": agg.get("loss", 0) / nb,
@@ -302,8 +331,10 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
             log(msg)
 
     # final fold checkpoint (train_cv_MT.py:119-130)
-    save_checkpoint(os.path.join(ckpt_dir, f"{opt.model_name}_{fold}.pt"),
-                    fold_payload(opt, fold, total_epochs, state,
-                                  final_eval.get("metrics_fuse")
-                                  if final_eval else None, with_crd=True))
+    if writer:
+        save_checkpoint(
+            os.path.join(ckpt_dir, f"{opt.model_name}_{fold}.pt"),
+            fold_payload(opt, fold, total_epochs, state,
+                         final_eval.get("metrics_fuse") if final_eval
+                         else None, with_crd=True))
     return final_eval, best

@@ -31,6 +31,8 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from ..parallel.mesh import active, average_grads
+
 
 class AdaBound(torch.optim.Optimizer):
     """AdaBound with the JAX package's law (``scale_by_adabound``):
@@ -86,7 +88,9 @@ class ScheduledOptimizer:
     """A torch optimizer whose LR follows ``lr_schedule`` of the update
     count (plus ``count_offset``), times ``lr_scale`` (the plateau scale, 1
     otherwise).  Parameters without a gradient get a zero one, so the L2
-    decay and the moments still move them, as the JAX chain does."""
+    decay and the moments still move them, as the JAX chain does.  Under a
+    data group the gradients are averaged over the ranks first
+    (``parallel.average_grads``), so every rank takes the same update."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  lr_schedule: Callable[[int], float], count_offset: int = 0):
@@ -102,11 +106,15 @@ class ScheduledOptimizer:
     def step(self) -> None:
         lr = float(self.lr_schedule(self.count + self.count_offset)) \
             * self.lr_scale
+        params = [p for group in self.optimizer.param_groups
+                  for p in group["params"]]
         for group in self.optimizer.param_groups:
             group["lr"] = lr
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if active() is not None:
+            average_grads(params)
         self.optimizer.step()
         self.count += 1
 

@@ -36,6 +36,14 @@ EMA forwards' updates.
 L2-normalised branch features of the student and the EMA as two views,
 with the class labels (``task grad`` only), times ``supcon_weight``.
 
+Under a data group (``--data_parallel``, ``parallel/mesh.py``) each rank
+runs the forwards on its rows of the global batch, with BatchNorm over the
+global batch; the step then gathers the outputs and the labels, indices
+and contrast samples the losses read (:func:`gather_outputs`), computes
+every loss on the global batch, identically on every rank, and the
+optimizer averages the gradients over the ranks.  The saliency pass of the
+masked step takes this rank's part of the global NLL.
+
 ``--fusion_type mmdynamics`` trains through its own step,
 :func:`build_mmdynamics_train_step` (``PathomicNet_dynamics``,
 ``networks_new.py:372-418``): the MMDynamic fusion's composite loss plus
@@ -63,6 +71,7 @@ from ..models.factory import _dtype, is_dynamics
 from ..models.fusion import _KronEncoder1
 from ..models.import_torch import apply_pretrained
 from ..models.pathomic import PathomicOutput
+from ..parallel.mesh import active, gather_rows
 from .ema import update_ema
 from .optim import make_optimizer
 from .state import TrainState, TsvdAux
@@ -85,6 +94,29 @@ def _apply(opt, model, batch, x_path):
     if opt.mode == "pathomic":
         return model(x_path=x_path, x_omic=batch["omic"])
     return model(x_path if opt.mode == "path" else batch["omic"])
+
+
+# the rows of a batch that the losses read: labels, indices, samples
+ROW_KEYS = ("g", "t", "e", "index", "sample_idx")
+
+
+def gather_outputs(outs, batch):
+    """Under a data group, every rank's rows of each output (a
+    PathomicOutput or a tuple of tensors; differentiably where they take a
+    gradient) and a copy of ``batch`` whose ``ROW_KEYS`` hold the global
+    batch's rows, in one call of ``parallel.gather_rows``; without one,
+    ``(outs, batch)``."""
+    if active() is None:
+        return outs, batch
+    keys = [k for k in ROW_KEYS if k in batch]
+    flat = [t for o in outs for t in o] + [batch[k] for k in keys]
+    flat = gather_rows(flat)
+    done, i = [], 0
+    for o in outs:
+        part = flat[i:i + len(o)]
+        done.append(type(o)(*part) if hasattr(o, "_fields") else tuple(part))
+        i += len(o)
+    return done, {**batch, **dict(zip(keys, flat[i:]))}
 
 
 def task_losses(opt, out: PathomicOutput, batch
@@ -259,9 +291,16 @@ def _saliency_masks(opt, model: nn.Module, x_path, batch, sp_mask):
     """The saliency masks of the masked step (JAX ``train/steps.py:
     396-404``): the fused NLL of ``model`` in eval mode, with its current
     (pre-step) running statistics and its parameters frozen, so that the
-    pass takes input gradients only (B2 and B4 once, B3 never)."""
+    pass takes input gradients only (B2 and B4 once, B3 never).  Under a
+    data group the cost is this rank's part of the global batch's NLL
+    (its rows' mean over the world size), so each row's input gradient is
+    the world-1 one: in eval mode no row sees another."""
+    dp = active()
+    share = 1.0 / dp.world if dp is not None else 1.0
+
     def cost_fn(xp, xo):
-        return nll_loss(model(x_path=xp, x_omic=xo).pred_fuse, batch["g"])
+        return share * nll_loss(model(x_path=xp, x_omic=xo).pred_fuse,
+                                batch["g"])
 
     model.eval()
     try:
@@ -279,9 +318,10 @@ def _masking_loss(opt, model: nn.Module, ema: nn.Module, batch,
     """The comprehensive-learning loss (JAX ``train/steps.py:405-500``):
     the pred-KD of a masked-path and a masked-omic student forward against
     EMA forwards on the two extra views.  The second student forward
-    reuses the main forward's path outputs, not detached.  Runs after the
-    main forward; ``r0`` holds ``path_net``'s buffers from before it
-    (``--masking_bn chain``)."""
+    reuses the main forward's path outputs (this rank's rows), not
+    detached.  Runs after the main forward; ``r0`` holds ``path_net``'s
+    buffers from before it (``--masking_bn chain``).  ``batch`` holds this
+    rank's rows; the KD terms read the gathered predictions."""
     path_mask, omic_mask = masks
     chain = opt.masking_bn == "chain"
     if chain:
@@ -309,8 +349,9 @@ def _masking_loss(opt, model: nn.Module, ema: nn.Module, batch,
         else:
             _restore_buffers(model, r1)
             _restore_buffers(ema, e1)
-    return (pred_kd_loss(out_m1.pred_fuse, ema_m1.pred_fuse, opt.task)
-            + pred_kd_loss(out_m2.pred_fuse, ema_m2.pred_fuse, opt.task))
+    s1, t1, s2, t2 = gather_rows([out_m1.pred_fuse, ema_m1.pred_fuse,
+                                  out_m2.pred_fuse, ema_m2.pred_fuse])
+    return (pred_kd_loss(s1, t1, opt.task) + pred_kd_loss(s2, t2, opt.task))
 
 
 def build_teacher_train_step(opt, masking: bool = False):
@@ -360,8 +401,9 @@ def build_teacher_train_step(opt, masking: bool = False):
             x1, x2 = views[:, 0], views[:, 1]
         with torch.no_grad():
             ema_out = adapt_output(opt, _apply(opt, ema, batch, x2))
-        out = adapt_output(opt, _apply(opt, model, batch, x1))
-        loss_task, metrics = task_losses(opt, out, batch)
+        out_rows = adapt_output(opt, _apply(opt, model, batch, x1))
+        (out, ema_out), gb = gather_outputs((out_rows, ema_out), batch)
+        loss_task, metrics = task_losses(opt, out, gb)
         loss = (opt.lambda_nll if opt.task == "grad" else opt.lambda_cox) \
             * loss_task
         loss = loss + opt.lambda_reg * l1_regularizer(model, opt.reg_type)
@@ -372,12 +414,12 @@ def build_teacher_train_step(opt, masking: bool = False):
             f_s = state.embeds["crd_fuse_s"](_branch_feat(opt, out))
             f_t = state.embeds["crd_fuse_t"](_branch_feat(opt, ema_out))
             out_s, out_t = crd_scores(
-                state.banks["fuse"], f_s, f_t, batch["index"],
-                batch["sample_idx"], T=opt.nce_t, momentum=opt.nce_m)
+                state.banks["fuse"], f_s, f_t, gb["index"],
+                gb["sample_idx"], T=opt.nce_t, momentum=opt.nce_m)
             if opt.CRD_gate:
                 # weighted_CRDLoss (CRD_loss.py:8-50): each anchor side by
                 # whose per-sample NLL is larger
-                g_col = batch["g"].long()[:, None]
+                g_col = gb["g"].long()[:, None]
                 s_w, t_w = crd_gate_weights(
                     -_branch_pred(opt, out).gather(1, g_col)[:, 0],
                     -_branch_pred(opt, ema_out).gather(1, g_col)[:, 0])
@@ -414,12 +456,12 @@ def build_teacher_train_step(opt, masking: bool = False):
                 for f in (_branch_feat(opt, out), _branch_feat(opt, ema_out))
             ], dim=1)
             metrics["loss_supcon"] = opt.supcon_weight * supcon_loss(
-                views, labels=batch["g"])
+                views, labels=gb["g"])
             loss = loss + metrics["loss_supcon"]
 
         if masking:
             metrics["loss_masking"] = _masking_loss(
-                opt, model, ema, batch, out, x1, xm1, xm2, masks, r0)
+                opt, model, ema, batch, out_rows, x1, xm1, xm2, masks, r0)
             loss = loss + metrics["loss_masking"]
 
         if _use_tsvd(opt):
@@ -440,7 +482,7 @@ def build_teacher_train_step(opt, masking: bool = False):
             if opt.task == "grad":
                 if pred is not None:
                     metrics[f"correct_{name}"] = (
-                        pred.argmax(dim=1) == batch["g"]).sum()
+                        pred.argmax(dim=1) == gb["g"]).sum()
             else:
                 metrics[f"risk_{name}"] = (pred.detach().reshape(-1)
                                            if pred is not None else zero)
@@ -458,7 +500,10 @@ def build_mmdynamics_train_step(opt):
     ``correct_fuse``, left on the device.  No EMA update, CRD or pred-KD:
     the EMA model and its buffers stay as they are, as the JAX step leaves
     ``ema_params``.  ``crd_weight`` and ``tsvd_update`` are taken and
-    ignored, so that the fold loop calls every step alike."""
+    ignored, so that the fold loop calls every step alike.  Under a data
+    group each rank's loss is its rows' mean (the model computes it), which
+    the gradient average turns into the global batch's; the metrics are
+    the global ones."""
     dtype = _dtype(opt)
 
     def train_step(state: TrainState, batch, crd_weight: float = 0.0,
@@ -472,8 +517,10 @@ def build_mmdynamics_train_step(opt):
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach(), "correct_fuse": (
-            mm_logit.detach().argmax(dim=1) == batch["g"]).sum()}
+        (losses,) = gather_rows([loss.detach()[None]])
+        mm_logit, g = gather_rows([mm_logit.detach(), batch["g"]])
+        return state, {"loss": losses.mean(), "correct_fuse": (
+            mm_logit.argmax(dim=1) == g).sum()}
 
     return train_step
 

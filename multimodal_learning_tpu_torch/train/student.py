@@ -33,11 +33,18 @@ Port of ``multimodal_learning_tpu/train/student.py`` (reference
 The KD losses read the student's logits as ``path_feat @ fc_new2`` in
 float32, as the JAX student recomputes them, whatever the encoder dtype.
 
+Under a data group (``--data_parallel``, ``parallel/mesh.py``) each rank
+runs the three forwards on its rows of the global batch (BatchNorm over
+the global batch, the frozen teacher's too under ``--teacher_bn batch``),
+then gathers the features and predictions the losses read and computes
+them on the global batch: ``feature_grads`` differentiates with respect
+to the gathered feature, and ``GK_refine_param`` averages each loss's
+parameter gradient over the ranks before its cosine Gram.
+
 Refused: the ``--distill`` values the JAX student wires no loss for
 (``attention``, ``vid``, ``kdsvd``, ``fsp``, ``abound``, ``factor``,
 ``nst``; JAX trains them silently as plain ``kd``: a documented deviation
-in ROADMAP's ground rules), and ``--data_parallel`` above 1, naming its
-ROADMAP item (A19).
+in ROADMAP's ground rules).
 """
 from __future__ import annotations
 
@@ -70,15 +77,18 @@ from ..models.factory import _dtype, define_model
 from ..models.fusion import _KronEncoder1
 from ..models.import_flax import state_dict_from_flax
 from ..models.pathomic import PathomicOutput
+from ..parallel.mesh import (active, barrier, check_batch, is_writer,
+                             launch_for)
 from ..utils.checkpoint import (load_checkpoint, load_train_state,
                                 save_checkpoint, save_train_state)
 from ..utils.logging import MetricsLogger
 from .ema import update_ema
-from .loop import evaluate, fold_payload
+from .loop import evaluate, fold_payload, rank_setup
 from .optim import make_optimizer
 from .schedules import PlateauTracker, make_lr_schedule
 from .state import TrainState
-from .steps import build_eval_step, init_model, resolve_device
+from .steps import (build_eval_step, gather_outputs, init_model,
+                    resolve_device)
 
 # the distiller-zoo losses of ``kd1``: the student feature against the
 # fused teacher feature (JAX ``train/student.py:219-230``)
@@ -96,9 +106,8 @@ def _refuse_unported(opt) -> None:
             "and trains it as plain kd (its KL terms only); the port "
             f"accepts {DISTILL_MODES} (a documented deviation, ROADMAP "
             "ground rules)")
-    if opt.data_parallel > 1:
-        raise NotImplementedError(
-            "--data_parallel > 1: ROADMAP A19 is not ported yet")
+    if opt.data_parallel > 0:
+        check_batch(opt.batch_size, opt.data_parallel)
 
 
 def init_student_state(opt, model: nn.Module, lr_schedule, n_data: int,
@@ -197,12 +206,15 @@ def frozen_teacher_forward(opt, teacher: nn.Module, x_path, x_omic,
     batch, dropout live, the Kronecker contraction through B1; its dropout
     and mask come from ``generator``.  ``running``: eval mode with the
     saved statistics, the contraction through B2.  ``teacher`` comes from
-    :func:`freeze_teacher`."""
+    :func:`freeze_teacher`.  Under a data group the Kronecker mask is
+    drawn from ``generator`` for the global batch, and the dropout masks
+    from the rank's own default generator, as every ``nn.Dropout`` of a
+    data-parallel run."""
     teacher.train(opt.teacher_bn == "batch")
     for m in teacher.modules():
         if isinstance(m, _KronEncoder1):
             m.generator = generator
-    with _default_generator_as(generator):
+    with _default_generator_as(generator if active() is None else None):
         return teacher(x_path=x_path, x_omic=x_omic)
 
 
@@ -295,31 +307,36 @@ def build_student_train_step(opt, teacher: nn.Module):
                      for name in crd_names}
 
         _, path_feat, _, pred_path = model(x1)
+        (rows,), batch = gather_outputs(
+            [(path_feat, pred_path, ema_feat, ema_logit, t_out.fuse_feat,
+              t_out.hazard_fuse)], batch)
+        path_feat, pred_path, ema_feat, ema_logit, t_fuse_feat, t_hazard = \
+            rows
         loss_cls = task_loss(batch, pred_path)
         fc = model.fc_new2
         logit = F.linear(path_feat, fc.weight, fc.bias)   # float32
-        t_feats = {"fuse": t_out.fuse_feat, "ema": ema_feat}
+        t_feats = {"fuse": t_fuse_feat, "ema": ema_feat}
         emb = {name: (state.embeds[f"crd_{name}_s"](path_feat),
                       state.embeds[f"crd_{name}_t"](t_feats[name]))
                for name in crd_names}
         if opt.distill == "hkd":
             f_es = state.embeds["hkd_embed_s"](path_feat)
-            f_et = state.embeds["hkd_embed_t"](t_out.fuse_feat)
+            f_et = state.embeds["hkd_embed_t"](t_fuse_feat)
 
         def kd_losses(per_sample: bool = False) -> Dict[str, torch.Tensor]:
             losses = {}
             div_teachers = (
-                [t_out.hazard_fuse, ema_logit] if opt.num_teachers == 2
-                else [t_out.hazard_fuse if opt.which_teacher == "fuse"
+                [t_hazard, ema_logit] if opt.num_teachers == 2
+                else [t_hazard if opt.which_teacher == "fuse"
                       else ema_logit])
             for i, t_logit in enumerate(div_teachers, 1):
                 losses[f"div{i}"] = alpha * distill_kl(
                     logit, t_logit, opt.kd_T, per_sample=per_sample)
             if opt.distill in ZOO:
-                losses["kd1"] = ZOO[opt.distill](path_feat, t_out.fuse_feat)
+                losses["kd1"] = ZOO[opt.distill](path_feat, t_fuse_feat)
             elif opt.distill == "hkd":
                 losses["kd1"] = _hkd_loss(state, f_es, f_et, logit,
-                                          t_out.hazard_fuse, batch)
+                                          t_hazard, batch)
             for i, name in enumerate(crd_names, 1):
                 f_s, f_t = emb[name]
                 out_s, out_t, _ = crd_scores_select(
@@ -452,12 +469,17 @@ def train_student(opt, data: Dict, fold: int,
     ``(final_eval, best_info, avg_all_metrics / 3)``."""
     _check_student_flags(opt)
     dev = resolve_device(device)
+    launched = launch_for(opt, dev, train_student,
+                          (opt, data, fold, patches_data, log, device))
+    if launched is not None:
+        return launched
+    dev, rank, world, log = rank_setup(opt, fold, dev, log)
     split = data["cv_splits"][fold]
     train_ds = PathomicDataset(opt, split, "train", train=True,
                                contrast=opt.distill in ("crd", "hkd"))
     loaders = [Loader(train_ds, opt.batch_size, shuffle=True, drop_last=True,
                       n_views=2, workers=opt.host_workers,
-                      seed=opt.seed + fold),
+                      seed=opt.seed + fold, rank=rank, world=world),
                Loader(PathomicDataset(opt, split, "test", train=False),
                       opt.batch_size, shuffle=False, drop_last=False,
                       n_views=1, workers=opt.host_workers, seed=opt.seed)]
@@ -495,10 +517,14 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
     eval_step = build_eval_step(eval_opt)
 
     ckpt_dir = os.path.join(opt.checkpoints_dir, opt.exp_name, opt.model_name)
-    mlog = MetricsLogger(ckpt_dir, run_name=f"student_fold{fold}")
+    writer = is_writer()
+    mlog = MetricsLogger(ckpt_dir, run_name=f"student_fold{fold}",
+                         enabled=writer)
     snap_path = os.path.join(ckpt_dir, f"{opt.model_name}_{fold}_state.pt")
     start_epoch = opt.epoch_count
     snap_extra = None
+    if opt.resume and opt.data_parallel:
+        barrier()   # rank 0 may still be writing the snapshot
     if opt.resume and os.path.exists(snap_path):
         done_epoch, snap_extra = load_train_state(snap_path, state)
         start_epoch = done_epoch + 1
@@ -536,7 +562,8 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
         path_metrics = np.array(res.get("metrics_path", np.zeros(4)))
         if plateau is not None:
             state.optimizer.lr_scale = plateau.step(res["loss"])
-        if opt.snapshot_every > 0 and epoch % opt.snapshot_every == 0:
+        if (writer and opt.snapshot_every > 0
+                and epoch % opt.snapshot_every == 0):
             save_train_state(snap_path, state, epoch,
                              extra={"plateau": plateau.state_dict()}
                              if plateau else None)
@@ -561,14 +588,17 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
             avg_metric = float(np.mean(path_metrics))
             if avg_metric > best["acc"]:
                 best = {"acc": avg_metric, "epoch": epoch}
-                save_checkpoint(
-                    os.path.join(ckpt_dir,
-                                 f"{opt.model_name}_{fold}_best.pt"),
-                    fold_payload(opt, fold, total_epochs, state,
-                                 res.get("metrics_path")))
+                if writer:
+                    save_checkpoint(
+                        os.path.join(ckpt_dir,
+                                     f"{opt.model_name}_{fold}_best.pt"),
+                        fold_payload(opt, fold, total_epochs, state,
+                                     res.get("metrics_path")))
 
-    save_checkpoint(os.path.join(ckpt_dir, f"{opt.model_name}_{fold}.pt"),
-                    fold_payload(opt, fold, total_epochs, state,
-                                 final_eval.get("metrics_path")
-                                 if final_eval else None))
+    if writer:
+        save_checkpoint(
+            os.path.join(ckpt_dir, f"{opt.model_name}_{fold}.pt"),
+            fold_payload(opt, fold, total_epochs, state,
+                         final_eval.get("metrics_path") if final_eval
+                         else None))
     return final_eval, best, avg_all_metrics / 3.0

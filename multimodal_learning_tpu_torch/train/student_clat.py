@@ -25,6 +25,12 @@ Port of ``multimodal_learning_tpu/train/student_clat.py`` (reference
 
 The student's state, its frozen teacher and the teacher's checkpoint come
 from ``train/student.py`` (``init_student_state``, ``load_teacher``).
+
+Under a data group (``--data_parallel``, ``parallel/mesh.py``) each rank
+runs the forwards on its rows of the global batch, then gathers the
+features, predictions, labels, indices and contrast samples, and computes
+the weights, the losses and the banks' updates on the global batch;
+``feature_grads`` differentiates with respect to the gathered feature.
 """
 from __future__ import annotations
 
@@ -47,14 +53,15 @@ from ..gradweight import feature_grads, gk_refine_thresh_weights
 from ..losses import cox_loss, distill_kl, l1_regularizer, nll_loss
 from ..models.common import apply_act
 from ..models.factory import _dtype, define_model
+from ..parallel.mesh import barrier, is_writer, launch_for
 from ..utils.checkpoint import (load_train_state, save_checkpoint,
                                 save_train_state)
 from ..utils.logging import MetricsLogger
 from .ema import update_ema
-from .loop import evaluate, fold_payload
+from .loop import evaluate, fold_payload, rank_setup
 from .schedules import PlateauTracker, make_lr_schedule
 from .state import TrainState
-from .steps import build_eval_step, resolve_device
+from .steps import build_eval_step, gather_outputs, resolve_device
 from .student import frozen_teacher_forward, init_student_state, load_teacher
 
 
@@ -92,14 +99,18 @@ def build_clat_student_step(opt, teacher: nn.Module,
         views = augment_views(state.generator, batch["path_views"],
                               dtype=dtype)
         x1, x2 = views[:, 0], views[:, 1]
-        bsz = x1.shape[0]
-        g = batch["g"]
         with torch.no_grad():
             _, ema_feat, ema_logit, _ = ema(x2)
         t_out = frozen_teacher_forward(opt, teacher, x1, batch["omic"],
                                        state.teacher_generator)
 
         _, path_feat, _, pred_path = model(x1)
+        (rows,), batch = gather_outputs(
+            [(path_feat, pred_path, ema_feat, ema_logit, t_out.fuse_feat,
+              t_out.hazard_fuse)], batch)
+        path_feat, pred_path, ema_feat, ema_logit, t_fuse_feat, t_hazard = \
+            rows
+        bsz, g = path_feat.shape[0], batch["g"]
         loss_cls = (cox_loss(batch["t"], batch["e"], pred_path)
                     if opt.task == "surv" else nll_loss(pred_path, g))
         fc = model.fc_new2
@@ -108,18 +119,18 @@ def build_clat_student_step(opt, teacher: nn.Module,
         # query-discrepancy sample weights (:359-377)
         prob_s = torch.softmax(logit.detach(), 1)
         ws = {}
-        for name, t_logit in (("fuse", t_out.hazard_fuse),
+        for name, t_logit in (("fuse", t_hazard),
                               ("ema", ema_logit)):
             w = assign_sample_weights(prob_s, torch.softmax(t_logit, 1), g,
                                       opt.max_discrep, opt.label_dim)
             ws[name] = w + 1.0 if reweight_on else torch.ones_like(w)
 
-        kd = {"div1": alpha * distill_kl(logit, t_out.hazard_fuse,
+        kd = {"div1": alpha * distill_kl(logit, t_hazard,
                                          opt.kd_T, per_sample=True),
               "div2": alpha * distill_kl(logit, ema_logit, opt.kd_T,
                                          per_sample=True)}
         if opt.distill == "crd":
-            t_feats = {"fuse": t_out.fuse_feat, "ema": ema_feat}
+            t_feats = {"fuse": t_fuse_feat, "ema": ema_feat}
             for i, name in enumerate(("fuse", "ema"), 1):
                 f_s = state.embeds[f"crd_{name}_s"](path_feat)
                 f_t = state.embeds[f"crd_{name}_t"](t_feats[name])
@@ -178,12 +189,17 @@ def train_clat_student(opt, data: Dict, fold: int,
     Returns ``(final_eval, best_info, best_ext_metrics)``."""
     _check_clat_flags(opt)
     dev = resolve_device(device)
+    launched = launch_for(opt, dev, train_clat_student,
+                          (opt, data, fold, patches_data, log, device))
+    if launched is not None:
+        return launched
+    dev, rank, world, log = rank_setup(opt, fold, dev, log)
     split = data["cv_splits"][fold]
     train_ds = PathomicDataset(opt, split, "train", train=True,
                                contrast=opt.distill in ("crd", "hkd"))
     loaders = [Loader(train_ds, opt.batch_size, shuffle=True, drop_last=True,
                       n_views=2, workers=opt.host_workers,
-                      seed=opt.seed + fold),
+                      seed=opt.seed + fold, rank=rank, world=world),
                Loader(PathomicDataset(opt, split, "test", train=False),
                       opt.batch_size, shuffle=False, drop_last=False,
                       n_views=1, workers=opt.host_workers, seed=opt.seed)]
@@ -223,10 +239,14 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
     eval_step = build_eval_step(eval_opt)
 
     ckpt_dir = os.path.join(opt.checkpoints_dir, opt.exp_name, opt.model_name)
-    mlog = MetricsLogger(ckpt_dir, run_name=f"clat_student_fold{fold}")
+    writer = is_writer()
+    mlog = MetricsLogger(ckpt_dir, run_name=f"clat_student_fold{fold}",
+                         enabled=writer)
     snap_path = os.path.join(ckpt_dir, f"{opt.model_name}_{fold}_state.pt")
     start_epoch = opt.epoch_count
     snap_extra = None
+    if opt.resume and opt.data_parallel:
+        barrier()   # rank 0 may still be writing the snapshot
     if opt.resume and os.path.exists(snap_path):
         done_epoch, snap_extra = load_train_state(snap_path, state)
         start_epoch = done_epoch + 1
@@ -267,7 +287,8 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
         res["ext_metrics"] = ext
         if plateau is not None:
             state.optimizer.lr_scale = plateau.step(res["loss"])
-        if opt.snapshot_every > 0 and epoch % opt.snapshot_every == 0:
+        if (writer and opt.snapshot_every > 0
+                and epoch % opt.snapshot_every == 0):
             save_train_state(snap_path, state, epoch,
                              extra={"plateau": plateau.state_dict()}
                              if plateau else None)
@@ -291,10 +312,11 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
             avg_metric = float(np.mean(list(ext.values())))
             if avg_metric > best["acc"]:
                 best = {"acc": avg_metric, "epoch": epoch, "ext": ext}
-                save_checkpoint(
-                    os.path.join(ckpt_dir,
-                                 f"{opt.model_name}_{fold}_best.pt"),
-                    fold_payload(opt, fold, total_epochs, state, ext))
+                if writer:
+                    save_checkpoint(
+                        os.path.join(ckpt_dir,
+                                     f"{opt.model_name}_{fold}_best.pt"),
+                        fold_payload(opt, fold, total_epochs, state, ext))
 
     # intra/inter-class similarity of the teacher's fused and the
     # student's path features over the test split (reference
@@ -312,8 +334,10 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
                 log(f"[fold {fold}] similarity diagnostics: "
                     f"{final_eval['similarity_diagnostics']}")
 
-    save_checkpoint(os.path.join(ckpt_dir, f"{opt.model_name}_{fold}.pt"),
-                    fold_payload(opt, fold, total_epochs, state,
-                                 final_eval.get("ext_metrics")
-                                 if final_eval else None))
+    if writer:
+        save_checkpoint(
+            os.path.join(ckpt_dir, f"{opt.model_name}_{fold}.pt"),
+            fold_payload(opt, fold, total_epochs, state,
+                         final_eval.get("ext_metrics") if final_eval
+                         else None))
     return final_eval, best, best.get("ext") or {}

@@ -13,13 +13,21 @@ from typing import Dict
 
 
 class MetricsLogger:
-    def __init__(self, ckpt_dir: str, run_name: str = "train"):
-        os.makedirs(ckpt_dir, exist_ok=True)
+    """Appends one JSON line per ``log``; with ``enabled=False`` (a
+    data-parallel rank other than 0) it writes nothing."""
+
+    def __init__(self, ckpt_dir: str, run_name: str = "train",
+                 enabled: bool = True):
+        self.enabled = enabled
+        if enabled:
+            os.makedirs(ckpt_dir, exist_ok=True)
         self.path = os.path.join(ckpt_dir, "metrics.jsonl")
         self.run_name = run_name
         self.t0 = time.time()
 
     def log(self, record: Dict) -> None:
+        if not self.enabled:
+            return
         rec = {"run": self.run_name,
                "wall_s": round(time.time() - self.t0, 2)}
         for k, v in record.items():

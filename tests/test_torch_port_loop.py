@@ -35,6 +35,8 @@ TEST = ("--synthetic_data --mode pathomic --task grad --batch_size 8 "
         "--model_name vt --reg_type none --paired_conv True "
         "--synthetic_folds 1").split()
 BRANCHES = ("fuse", "path", "omic")
+TORCHRUN_VARS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                 "LOCAL_RANK")
 
 
 @pytest.fixture(autouse=True)
@@ -158,10 +160,15 @@ def test_resume_continues_after_the_snapshot(tmp_path):
     assert res["n"] == 12
 
 
-@pytest.mark.parametrize("flags,item", [(dict(data_parallel=2), "A19")])
-def test_train_teacher_refuses_what_is_not_ported(flags, item):
+@pytest.mark.parametrize("flags,match", [
+    (dict(data_parallel=2, batch_size=3),
+     "--batch_size 3 must be divisible by the data-parallel mesh size 2")])
+def test_train_teacher_refuses_what_is_not_ported(flags, match):
+    """``--data_parallel`` is ported (``tests/test_torch_port_data_parallel
+    .py``); what stays refused is the JAX package's ``ValueError`` for a
+    batch the ranks cannot split, raised before any rank starts."""
     data = make_synthetic_splits(n_train=8, n_test=4, roi_size=32, seed=0)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(ValueError, match=match):
         loop.train_teacher(_tiny(**flags), data, 1, device="cpu")
 
 
@@ -221,7 +228,8 @@ def test_state_tree_round_trips_each_optimizer(optimizer_type):
 
 
 def test_drivers_refuse_multihost_and_pretrained_only(tmp_path, monkeypatch):
-    """Multi-host training is refused (A19); ``test_cv_MT --pretrained_path``
+    """``MML_MULTIHOST=1`` without torchrun's environment raises naming
+    the variables that are missing; ``test_cv_MT --pretrained_path``
     without a fold checkpoint evaluates the converted weights, with a
     ``{k}`` placeholder per fold, and dumps the same predictions as an
     evaluation of a model loaded with them."""
@@ -233,7 +241,9 @@ def test_drivers_refuse_multihost_and_pretrained_only(tmp_path, monkeypatch):
     from multimodal_learning_tpu_torch.train.steps import build_eval_step
     monkeypatch.setenv("MML_PLATFORM", "cpu")
     monkeypatch.setenv("MML_MULTIHOST", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
+    for var in TORCHRUN_VARS:
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match=", ".join(TORCHRUN_VARS)):
         train_cv_MT.main(TRAIN + ["--checkpoints_dir", str(tmp_path)])
     opt = parse_args(TEST + ["--checkpoints_dir", str(tmp_path),
                              "--pretrained_path",

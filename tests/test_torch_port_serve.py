@@ -263,6 +263,8 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.lowrank.views",
     "multimodal_learning_tpu_torch.recipes",
     "multimodal_learning_tpu_torch.recipes.baseline",
+    "multimodal_learning_tpu_torch.parallel",
+    "multimodal_learning_tpu_torch.parallel.mesh",
     "chip_smoke",
 ]
 # library-level offline analysis that imports pandas (and matplotlib) at

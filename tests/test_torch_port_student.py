@@ -596,21 +596,26 @@ def test_teacher_step_with_crd_gate_matches_jax(interpret_pallas,
 REFUSED = {
     # the JAX student wires no loss for --distill vid (nor attention,
     # kdsvd, fsp, abound, factor, nst) and trains it as plain kd
-    "distill_vid": (dict(distill="vid"), "ground rules"),
-    "data_parallel": (dict(data_parallel=2), "A19"),
+    "distill_vid": (dict(distill="vid"), NotImplementedError,
+                    r"ROADMAP ground rules\b"),
+    # --data_parallel is ported (tests/test_torch_port_data_parallel.py);
+    # a batch the ranks cannot split is the JAX package's ValueError
+    "data_parallel": (dict(data_parallel=2, batch_size=3), ValueError,
+                      "--batch_size 3 must be divisible by the "
+                      "data-parallel mesh size 2"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_student_refusals_name_their_roadmap_item(case):
-    flags, item = REFUSED[case]
+    flags, exc, match = REFUSED[case]
     opt = Options(**dict(DIMS, **flags))
     for call in (lambda: pstudent.build_student_train_step(opt, None),
                  lambda: pstudent.init_student_state(
                      opt, torch.nn.Linear(2, 2), make_lr_schedule(opt, 5),
                      N_DATA, device="cpu"),
                  lambda: pstudent.train_student(opt, {}, 1, device="cpu")):
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\b"):
+        with pytest.raises(exc, match=match):
             call()
 
 

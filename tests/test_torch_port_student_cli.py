@@ -157,7 +157,12 @@ def test_student_drivers_refuse_multihost_and_a_missing_card(tmp_path,
                                                    train_cv_path_multi_MT)
     monkeypatch.setenv("MML_PLATFORM", "cpu")
     monkeypatch.setenv("MML_MULTIHOST", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    # multi-host training joins a torchrun job, and names what is missing
+    # of its environment
+    with pytest.raises(RuntimeError, match="MASTER_ADDR, MASTER_PORT"):
         train_cv_path_multi_MT.main(STUDENT + ["--checkpoints_dir",
                                                str(tmp_path)])
     monkeypatch.delenv("MML_MULTIHOST")
