@@ -212,9 +212,29 @@ Phases, each of which raises on failure (nothing is caught):
     ``parallel.launch`` (one per card) on one synthetic fold, 2 epochs of
     4 steps: B1 16 times and B2 4 times in rank 0, and ``cli.test_cv_MT``
     reproducing its final eval exactly; with two cards or more, the
-    world-2 first step against world 1, else a line saying it was not run.
+    world-2 first step against world 1, else a line saying it was not run;
+39. the input path users run, at full width: ``make_synthetic_splits``
+    writes one fold of 64 + 32 ROIs as 1024^2 JPEGs (quality 90, the
+    reference's ``all_st`` ROI size) and the split pickle goes where
+    ``split_pickle_path`` looks; prints which decoder serves
+    (``native_loader``'s libjpeg build, or PIL with g++'s error), each
+    decoder's ms per ROI (median of 20) and, with the native one, fails
+    if any ROI's pixels differ from PIL's; the loader's ROIs/s with its
+    cache cold; ``cli.train_cv_MT`` on the ``teacher`` recipe at 512^2
+    crops with ``--paired_conv True`` and without ``--synthetic_data`` (2
+    epochs of 4 steps) and ``cli.test_cv_MT`` (B1, B2 and B5 counted as
+    in phase 12): the ROIs are larger than the crop, so the evals crop at
+    random (as in the reference and the JAX package) and each draws its
+    own crops; the training-time final eval and test_cv_MT must each
+    equal exactly an eval of the fold checkpoint on the same draw; then a
+    fold of that recipe with ``--lr_policy plateau`` and CRD stopped after
+    epoch 1, its ``.pt`` state written as the JAX package's ``.snap``
+    (``save_jax_snapshot``) and deleted: the ``.snap``-restored state must
+    equal the ``.pt``-restored one tensor for tensor, and ``train_cv_MT
+    --resume`` must carry the fold on from the ``.snap``; the ``.snap``'s
+    MiB, write and read s, and the phase's wall s.
 
-Phases 4, 14-17, 19-22, 27, 29 and 32-36 take their configurations from
+Phases 4, 14-17, 19-22, 27, 29, 32-36 and 39 take their configurations from
 the port's recipes (``recipes/baseline.py``) with the cuts named beside
 them (``_recipe``).
 
@@ -236,6 +256,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -1356,12 +1377,60 @@ def _tsvd_path(card, gen, dev):
     return r
 
 
+@contextlib.contextmanager
+def _shared_crd_ranking(label, card):
+    """CRD's positive and negative selections (``contrast.crd.
+    crd_scores_select``) rank each bank row by its cosine with the query
+    (``crd._cos_rel``, taking no gradient).  Two orders of summation may
+    order a near tie the other way, and the loss then jumps by a swapped
+    pair, which no tolerance on a continuous function covers.  Within the
+    block every run after the first ranks by the first run's cosines; each
+    run calls the yielded function before it starts.  On leaving, each
+    run's own cosines are held to the first's at phase 9's tolerances
+    (rtol 2e-3 / atol 5e-4), so the ranking stays checked, and the steps
+    compared downstream took the same discrete decisions."""
+    from multimodal_learning_tpu_torch.contrast import crd
+    own, runs = crd._cos_rel, []
+
+    def cos_rel(w, v):
+        rel = own(w, v)
+        runs[-1].append(rel)
+        if len(runs) == 1:
+            return rel
+        if len(runs[-1]) > len(runs[0]):
+            raise AssertionError(f"{label}: more CRD rankings than the "
+                                 "first run's")
+        return runs[0][len(runs[-1]) - 1].to(rel.device)
+
+    crd._cos_rel = cos_rel
+    try:
+        yield lambda: runs.append([])
+    finally:
+        crd._cos_rel = own
+    worst = 0.0
+    for mine in runs[1:]:
+        if len(mine) != len(runs[0]):
+            raise AssertionError(f"{label}: {len(mine)} CRD rankings against "
+                                 f"the first run's {len(runs[0])}")
+        for i, (want, got) in enumerate(zip(runs[0], mine)):
+            want, got = want.float().cpu(), got.float().cpu()
+            torch.testing.assert_close(got, want, rtol=2e-3, atol=5e-4,
+                                       msg=f"{label}: CRD cosines {i}")
+            worst = max(worst, (got - want).abs().max().item())
+    if runs and runs[0]:
+        print(f"{label}: {len(runs[0])} CRD rankings by the first run's "
+              f"cosines; each run's own within max|diff| {worst:.3e} of "
+              f"them ({card})")
+
+
 def _student_cross_check(card, gen, teacher_sd, batch_size=4, **flags):
     """Phase 16 (and 26, with ``flags``): one fp32 student step (the phase
     14 flags, dropout 0) on the card (kernel path, TF32 off) against the
     CPU (plain path, oneDNN off), from the same state, views and, for CRD,
-    ``mid`` ranks, at phase 9's tolerances: the loss parts, the AEKD scale
-    and the banks (CRD's with their Z, HKD's) at rtol 2e-3 / atol 5e-4;
+    ``mid`` ranks, the CPU ranking CRD's pairs by the card's cosines
+    (:func:`_shared_crd_ranking`), at phase 9's tolerances: the loss
+    parts, the AEKD scale and the banks (CRD's with their Z, HKD's) at
+    rtol 2e-3 / atol 5e-4;
     Adam's first moment of the heads (the CRD or HKD embeds and encoders,
     ``fc_new1`` but its bias, which feeds a train-mode BatchNorm,
     ``fc_new2``) at rtol 2e-3 and an atol of 2e-3 of each tensor's largest
@@ -1399,29 +1468,32 @@ def _student_cross_check(card, gen, teacher_sd, batch_size=4, **flags):
     student.knn_adjacency = recorded_knn
     results = {}
     try:
-        for where in ("cuda", "cpu"):
-            state = student.init_student_state(
-                opt, copy.deepcopy(model), make_lr_schedule(opt, 50),
-                opt.n_data, seed=SEED, device=where)
-            step = student.build_student_train_step(
-                opt, student.freeze_teacher(copy.deepcopy(teacher), where))
-            with torch.backends.mkldnn.flags(enabled=False):
-                _, metrics = step(state, {k: v.to(where)
-                                          for k, v in batch.items()}, 0.1,
-                                  picks={k: v.to(where)
-                                         for k, v in picks.items()})
-            adam = state.optimizer.optimizer.state
-            named = {f"model.{n}": p for n, p in
-                     state.model.named_parameters()}
-            named.update({f"{side}.{n}": p for side, emb in
-                          state.embeds.items()
-                          for n, p in emb.named_parameters()})
-            results[where] = (
-                {k: v.cpu() for k, v in metrics.items()},
-                {n: adam[p]["exp_avg"].cpu() for n, p in named.items()},
-                {f"{name}.{k}": v.cpu()
-                 for name, bank in state.banks.items()
-                 for k, v in dataclasses.asdict(bank).items()})
+        with _shared_crd_ranking(label, card) as next_run:
+            for where in ("cuda", "cpu"):
+                next_run()
+                state = student.init_student_state(
+                    opt, copy.deepcopy(model), make_lr_schedule(opt, 50),
+                    opt.n_data, seed=SEED, device=where)
+                step = student.build_student_train_step(
+                    opt, student.freeze_teacher(copy.deepcopy(teacher),
+                                                where))
+                with torch.backends.mkldnn.flags(enabled=False):
+                    _, metrics = step(state, {k: v.to(where)
+                                              for k, v in batch.items()}, 0.1,
+                                      picks={k: v.to(where)
+                                             for k, v in picks.items()})
+                adam = state.optimizer.optimizer.state
+                named = {f"model.{n}": p for n, p in
+                         state.model.named_parameters()}
+                named.update({f"{side}.{n}": p for side, emb in
+                              state.embeds.items()
+                              for n, p in emb.named_parameters()})
+                results[where] = (
+                    {k: v.cpu() for k, v in metrics.items()},
+                    {n: adam[p]["exp_avg"].cpu() for n, p in named.items()},
+                    {f"{name}.{k}": v.cpu()
+                     for name, bank in state.banks.items()
+                     for k, v in dataclasses.asdict(bank).items()})
     finally:
         student.augment_views, student.knn_adjacency = augment, knn
     (m_gpu, mu_gpu, b_gpu), (m_cpu, mu_cpu, b_cpu) = (results["cuda"],
@@ -3244,8 +3316,9 @@ def _dp_first_steps(card, gen, init, teacher_sd):
     """The first fp32 step of the flagship teacher (dropout 0.1: the
     default generator reseeded before each step, B1's mask from the state's
     generator) and of the MICCAI student (dropout 0), with and without data
-    parallel at world 1 (an NCCL group of one, joined here), held by
-    :func:`_dp_hold`.  Returns the teacher's batch on the host and its
+    parallel at world 1 (an NCCL group of one, joined here), the second
+    ranking CRD's pairs by the first's cosines (:func:`_shared_crd_ranking`),
+    held by :func:`_dp_hold`.  Returns the teacher's batch on the host and its
     metrics at dropout 0, for the world-2 comparison."""
     from multimodal_learning_tpu_torch import parallel
     dev = torch.device("cuda")
@@ -3257,15 +3330,17 @@ def _dp_first_steps(card, gen, init, teacher_sd):
         for name, opt, sd in cases:
             batch = (_train_batch if sd is None else _student_batch)(
                 opt, gen, dev)
+            label = f"data parallel world 1 vs plain, fp32 {name} first step"
             runs = []
-            for (state, step), sharded in zip(_dp_states(opt, sd),
-                                              (False, True)):
-                torch.cuda.manual_seed(SEED)
-                with (parallel.unsharded() if not sharded
-                      else contextlib.nullcontext()):
-                    runs.append((state, step(state, batch, 0.1)[1]))
-            _dp_hold(card, f"data parallel world 1 vs plain, fp32 {name} "
-                     "first step", *runs)
+            with _shared_crd_ranking(label, card) as next_run:
+                for (state, step), sharded in zip(_dp_states(opt, sd),
+                                                  (False, True)):
+                    next_run()
+                    torch.cuda.manual_seed(SEED)
+                    with (parallel.unsharded() if not sharded
+                          else contextlib.nullcontext()):
+                        runs.append((state, step(state, batch, 0.1)[1]))
+            _dp_hold(card, label, *runs)
             del runs
         opt0 = _train_opt(compute_dtype="float32", dropout_rate=0.0)
         batch = _train_batch(opt0, gen, "cpu")
@@ -3446,6 +3521,319 @@ def _data_parallel(card, gen, teacher_sd):
         print(f"data parallel world 2: not run, this machine has {world} "
               f"card ({card})")
     out.update(cli_s=cli_s, cli_launches=launches)
+    return out
+
+
+# Phase 39: the input path users run, at full width (ROADMAP A10): one fold
+# of 1024^2 ROI JPEGs (the reference's all_st size) on disk behind the
+# reference's split pickle, the ``teacher`` recipe at 512^2 crops with
+# ``--paired_conv``; and the same recipe's fold carried across packages by
+# a JAX ``.snap``, with ``--lr_policy plateau`` and the flagship step's CRD
+# added so that the plateau scale, the CRD heads and a bank cross too.
+JPEG_ROI = 1024
+JPEG_CHAIN = _recipe("teacher", niter_decay=2, paired_conv=True,
+                     model_name="smoke_jpeg")
+RESUME_CHAIN = dict(JPEG_CHAIN, niter=1, niter_decay=0, snapshot_every=1,
+                    lr_policy="plateau", CRD_distill=1, nce_k=512,
+                    model_name="smoke_resume")
+
+
+def _median_ms(fn, n=20):
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return sorted(ms)[n // 2]
+
+
+def _decoders(card, paths):
+    """Which decoder serves the pipeline (``native_loader.available()``,
+    with g++'s error when the build failed), each decoder's ms per ROI on
+    the first file (median of 20), and, with the native one, its pixels
+    against PIL's on every file (raises where one differs)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from multimodal_learning_tpu_torch.data import native_loader
+
+    def pil(blob):
+        with Image.open(io.BytesIO(blob)) as im:
+            return np.asarray(im.convert("RGB"))
+
+    with open(paths[0], "rb") as fh:
+        blob = fh.read()
+    out = {"decoder": "native" if native_loader.available() else "pil",
+           "pil_ms": _median_ms(lambda: pil(blob)), "native_ms": None}
+    if out["decoder"] == "pil":
+        print("jpeg chain: the native decoder did not build, so PIL "
+              "decodes every ROI, as in the JAX package; g++ said: "
+              f"{native_loader.build_error()} ({card})")
+        return out
+    out["native_ms"] = _median_ms(lambda: native_loader.decode_jpeg(blob))
+
+    def same(path):
+        with open(path, "rb") as fh:
+            data = fh.read()
+        return np.array_equal(native_loader.decode_jpeg(data), pil(data))
+
+    with ThreadPoolExecutor(8) as pool:
+        equal = list(pool.map(same, paths))
+    if not all(equal):
+        raise RuntimeError(
+            f"the native decoder's pixels differ from PIL's on "
+            f"{equal.count(False)} of {len(paths)} ROIs, first "
+            f"{paths[equal.index(False)]}")
+    print(f"jpeg chain: native and PIL decode all {len(paths)} ROIs to "
+          f"equal pixels ({card})")
+    return out
+
+
+def _state_tensors(state):
+    """Every tensor of a port train state that a snapshot carries, by
+    name: the models' parameters and buffers (but BatchNorm's
+    ``num_batches_tracked``, which no JAX state holds), the heads, the
+    optimizer's moments and steps, the banks, the count, the plateau scale
+    and the step."""
+    out = {}
+    for prefix, module in (("model", state.model), ("ema", state.ema_model),
+                           ("embeds", state.embeds)):
+        out.update({f"{prefix}.{k}": v for k, v in
+                    module.state_dict().items()
+                    if not k.endswith("num_batches_tracked")})
+    named = {f"model.{n}": p for n, p in state.model.named_parameters()}
+    named.update({f"embeds.{n}": p
+                  for n, p in state.embeds.named_parameters()})
+    torch_opt = state.optimizer.optimizer
+    for n, p in named.items():
+        for k, v in torch_opt.state[p].items():
+            out[f"moments.{n}.{k}"] = torch.as_tensor(v)
+    for name, bank in state.banks.items():
+        fields = (dataclasses.asdict(bank) if dataclasses.is_dataclass(bank)
+                  else {"": bank})
+        out.update({f"bank.{name}.{k}": v for k, v in fields.items()})
+    out.update(count=torch.tensor(state.optimizer.count),
+               lr_scale=torch.tensor(state.optimizer.lr_scale),
+               step=torch.tensor(state.step))
+    return out
+
+
+def _resume_round_trip(card, root, dataroot, n_train, n_test):
+    """A fold of ``RESUME_CHAIN`` stopped after epoch 1 (its ``.pt``), its
+    state written as a JAX ``.snap`` by ``save_jax_snapshot``, the ``.pt``
+    deleted; the ``.snap`` restored into a fresh state must equal the
+    ``.pt``-restored one tensor for tensor, and ``train_cv_MT --resume``
+    must carry the fold on from it.  Returns the ``.snap``'s MiB, the
+    write and read s, and the two drivers' launches."""
+    from multimodal_learning_tpu_torch.cli import train_cv_MT
+    from multimodal_learning_tpu_torch.cli._platform import select_device
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.train import make_lr_schedule
+    from multimodal_learning_tpu_torch.train.steps import init_teacher_state
+    from multimodal_learning_tpu_torch.utils.checkpoint import (
+        load_jax_snapshot, load_train_state, save_jax_snapshot)
+
+    cfg = dict(RESUME_CHAIN, dataroot=dataroot)
+    steps, fwd = n_train // cfg["batch_size"], -(-n_test // cfg["batch_size"])
+    want = {"conv3x3": 12 * steps + 4 * fwd, "kron_train_fwd": 2 * steps,
+            "kron_fwd": fwd}
+    _, first = _run_cli(train_cv_MT.main, cfg, root, want,
+                        "jpeg chain: train_cv_MT, 1 epoch with a snapshot",
+                        card)
+    name = cfg["model_name"]
+    base = os.path.join(root, "grad_15", name, f"{name}_1_state")
+    opt = Options(**cfg, checkpoints_dir=root).replace(n_data=n_train)
+
+    def fresh(seed):
+        return init_teacher_state(
+            opt, define_model(opt, generator=torch.Generator().manual_seed(
+                seed)), make_lr_schedule(opt, steps), n_train, seed=seed,
+            device=select_device())
+
+    from_pt = fresh(opt.seed + 1)
+    epoch, extra = load_train_state(f"{base}.pt", from_pt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_jax_snapshot(f"{base}.snap", from_pt, opt, epoch, extra)
+    write_s = time.perf_counter() - t0
+    mib = os.path.getsize(f"{base}.snap") / 2 ** 20
+    os.remove(f"{base}.pt")
+    from_snap = fresh(opt.seed + 7)
+    t0 = time.perf_counter()
+    got = load_jax_snapshot(f"{base}.snap", from_snap, opt)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    if got != (epoch, extra):
+        raise RuntimeError(f".snap gave epoch and extra {got}, the .pt "
+                           f"{(epoch, extra)}")
+    a, b = _state_tensors(from_pt), _state_tensors(from_snap)
+    if sorted(a) != sorted(b):
+        raise RuntimeError(f"the restored states hold other tensors: "
+                           f"{sorted(set(a) ^ set(b))[:5]}")
+    differ = [k for k in a if a[k].dtype != b[k].dtype
+              or not torch.equal(a[k].cpu(), b[k].cpu())]
+    if differ:
+        raise RuntimeError(f"{len(differ)} of {len(a)} tensors differ "
+                           f"between the .pt- and .snap-restored states, "
+                           f"first {differ[:5]}")
+    print(f"jpeg chain: the .snap-restored state equals the .pt-restored "
+          f"one in all {len(a)} tensors (parameters, EMA, BatchNorm "
+          f"buffers, heads, moments, banks {sorted(from_pt.banks)}, count "
+          f"{from_pt.optimizer.count}, plateau scale "
+          f"{from_pt.optimizer.lr_scale}); .snap {mib:.1f} MiB, written in "
+          f"{write_s:.3f} s, read in {read_s:.3f} s ({card})")
+    del from_pt, from_snap
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, resumed = _run_cli(train_cv_MT.main,
+                              dict(cfg, niter_decay=1, resume=True), root,
+                              want, "jpeg chain: train_cv_MT --resume", card)
+    sys.stdout.write(buf.getvalue())
+    line = f"[fold 1] resumed from epoch 1 ({name}_1_state.snap)"
+    if line not in buf.getvalue().splitlines():
+        raise RuntimeError(f"train_cv_MT --resume did not log {line!r}")
+    return {"snap_mib": mib, "write_s": write_s, "read_s": read_s,
+            "launches": {k: first[k] + resumed[k] for k in first}}
+
+
+def _hold_test_evals(card, opt, split, root, res, tested, dumped, epochs):
+    """The test split's crops are random 512^2 windows of the 1024^2 ROIs
+    (``RandomCrop`` at test time, as in the reference and the JAX
+    package), drawn from the eval loader's generator: the training run's
+    loader (seeded ``--seed``) draws anew at each of its ``epochs`` evals,
+    and ``test_cv_MT``'s fresh loader (seeded 0, as in the JAX
+    ``cli/test_cv_MT.py``) draws its own.  So each is held to an
+    evaluation of the fold checkpoint's weights on the same draw: the
+    training-time final eval exactly to a loader seeded ``--seed`` after
+    ``epochs - 1`` draws, and ``test_cv_MT`` (its metrics and dumped
+    probabilities) exactly to a fresh loader seeded 0."""
+    from multimodal_learning_tpu_torch.data.pipeline import (Loader,
+                                                             PathomicDataset)
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.models.import_flax import \
+        state_dict_from_flax
+    from multimodal_learning_tpu_torch.cli._platform import select_device
+    from multimodal_learning_tpu_torch.train.loop import evaluate
+    from multimodal_learning_tpu_torch.train.steps import build_eval_step
+    from multimodal_learning_tpu_torch.utils import load_checkpoint
+
+    name = opt.model_name
+    ckpt = load_checkpoint(os.path.join(root, "grad_15", name,
+                                        f"{name}_1.pt"))
+    model = define_model(opt)
+    model.load_state_dict(state_dict_from_flax(ckpt["model_state_dict"],
+                                               ckpt["batch_stats"]))
+    dev = select_device()
+    model.to(dev)
+
+    def evaluation(seed, draws):
+        loader = Loader(PathomicDataset(opt, split, "test", train=False),
+                        opt.batch_size, shuffle=False, drop_last=False,
+                        n_views=1, workers=opt.host_workers, seed=seed)
+        try:
+            for _ in range(draws):
+                for _ in loader:
+                    pass
+            return evaluate(opt, build_eval_step(opt), model, loader, dev,
+                            torch.Generator(device=dev).manual_seed(seed))
+        finally:
+            loader.close()
+
+    for what, got, want in (
+            ("the training-time final eval", res,
+             evaluation(opt.seed, epochs - 1)),
+            ("test_cv_MT", {**{f"metrics_{k}": v[0] for k, v in
+                               tested.items()}, "probs": dumped["probs"]},
+             evaluation(0, 0))):
+        for k in ("fuse", "path", "omic"):
+            if list(got[f"metrics_{k}"]) != list(want[f"metrics_{k}"]) or \
+                    not np.array_equal(got["probs"][k], want["probs"][k]):
+                raise RuntimeError(f"{what}'s {k} eval differs from the "
+                                   "fold checkpoint's on the same crops")
+            if not np.isfinite(got["probs"][k]).all():
+                raise RuntimeError(f"{what}'s {k} probabilities are not "
+                                   "finite")
+    print("jpeg chain: the training-time final eval and test_cv_MT each "
+          "equal the fold checkpoint's eval on their own draw of test "
+          "crops exactly; AUC/AP/F1/F1-IV final eval / test_cv_MT", {
+              k: [f"{float(a):.5f}/{float(b):.5f}" for a, b in zip(
+                  res[f"metrics_{k}"], tested[k][0])]
+              for k in ("fuse", "path", "omic")}, f"({card})")
+
+
+def _jpeg_chain(card, n_train=64, n_test=32):
+    """Phase 39: ``make_synthetic_splits`` writes one fold of 1024^2 ROI
+    JPEGs (quality 90) and the split pickle goes where
+    ``split_pickle_path`` looks; the decoders are compared; the loader's
+    ROIs/s with its cache cold; ``cli.train_cv_MT`` on ``JPEG_CHAIN``
+    (without ``--synthetic_data``) and ``cli.test_cv_MT``, each eval held
+    exactly to the fold checkpoint's on the same crops
+    (``_hold_test_evals``); then the cross-package resume
+    (``_resume_round_trip``).  Returns the phase's numbers and launches."""
+    from multimodal_learning_tpu_torch.cli import test_cv_MT, train_cv_MT
+    from multimodal_learning_tpu_torch.data.pipeline import (Loader,
+                                                             PathomicDataset)
+    from multimodal_learning_tpu_torch.data.splits import (
+        make_synthetic_splits, save_splits, split_pickle_path)
+    from multimodal_learning_tpu_torch.eval import load_pred_test
+
+    t_phase = time.perf_counter()
+    epochs, bs = JPEG_CHAIN["niter_decay"], JPEG_CHAIN["batch_size"]
+    steps, fwd = epochs * (n_train // bs), -(-n_test // bs)
+    with tempfile.TemporaryDirectory() as root:
+        dataroot = os.path.join(root, "data")
+        cfg = dict(JPEG_CHAIN, dataroot=dataroot)
+        t0 = time.perf_counter()
+        data = make_synthetic_splits(
+            n_train=n_train, n_test=n_test, roi_size=JPEG_ROI,
+            image_dir=os.path.join(dataroot, "rois"), seed=SEED)
+        pickle_path = split_pickle_path(Options(**cfg))
+        os.makedirs(os.path.dirname(pickle_path), exist_ok=True)
+        save_splits(data, pickle_path)
+        split = data["cv_splits"][1]
+        paths = [str(p) for part in ("train", "test")
+                 for p in split[part]["x_path"]]
+        mib = sum(os.path.getsize(p) for p in paths) / 2 ** 20
+        print(f"jpeg chain: {len(paths)} {JPEG_ROI}^2 ROI JPEGs ({mib:.1f} "
+              f"MiB) and {os.path.relpath(pickle_path, root)} written in "
+              f"{time.perf_counter() - t0:.2f} s ({card})")
+        out = _decoders(card, paths)
+        opt = Options(**cfg)
+        loader = Loader(PathomicDataset(opt, split, "train", train=True),
+                        bs, shuffle=True, drop_last=True, n_views=2,
+                        workers=opt.host_workers, seed=opt.seed)
+        t0 = time.perf_counter()
+        n = sum(len(batch["g"]) for batch in loader)
+        out["cold_rois_per_s"] = n / (time.perf_counter() - t0)
+        loader.close()
+        print(f"jpeg chain: decoder {out['decoder']}: "
+              + (f"{out['native_ms']:.2f} ms per {JPEG_ROI}^2 ROI, "
+                 if out["native_ms"] is not None else "")
+              + f"PIL {out['pil_ms']:.2f} ms (median of 20, one thread); "
+              f"the loader, cache cold, {out['cold_rois_per_s']:.1f} ROIs/s "
+              f"({opt.host_workers} threads, two {opt.input_size_path}^2 "
+              f"crops each) ({card})")
+        res, train_l = _run_cli(
+            train_cv_MT.main, cfg, root,
+            {"conv3x3": 12 * steps + 4 * epochs * fwd,
+             "kron_train_fwd": 2 * steps, "kron_fwd": epochs * fwd},
+            f"jpeg chain: train_cv_MT ({steps} steps, {epochs} evals of "
+            f"{n_test} ROIs)", card)
+        res = res[1]
+        tested, test_l = _run_cli(
+            test_cv_MT.main, cfg, root, {"conv3x3": 4 * fwd, "kron_fwd": fwd},
+            "jpeg chain: test_cv_MT", card)
+        dumped = load_pred_test(os.path.join(
+            root, "grad_15", cfg["model_name"],
+            f"{cfg['model_name']}_1_pred_test.pkl"))
+        _hold_test_evals(card, opt, split, root, res, tested, dumped, epochs)
+        rt = _resume_round_trip(card, os.path.join(root, "resume"),
+                                dataroot, n_train, n_test)
+    out.update(resume=rt, launches={
+        k: train_l[k] + test_l[k] + rt["launches"][k] for k in train_l},
+        phase_s=time.perf_counter() - t_phase)
+    print(f"jpeg chain: phase 39 in {out['phase_s']:.1f} s ({card})")
     return out
 
 
@@ -3809,6 +4197,21 @@ def main() -> int:
           f"fwd+bwd global {dp['bn']['global']:.4f} ms / cuDNN "
           f"{dp['bn']['cudnn']:.4f} ms; train_cv_MT --data_parallel -1 "
           f"{dp['cli_s']:.2f} s ({card})")
+    # 39. the real input chain from 1024^2 JPEG ROIs on disk, and the
+    # fold carried across packages by a JAX .snap
+    stamp(39)
+    jpeg = _jpeg_chain(card)
+    torch.cuda.empty_cache()
+    print("A10 input chain and cross-package resume: decoder "
+          f"{jpeg['decoder']}, " + (
+              f"{jpeg['native_ms']:.2f} ms per {JPEG_ROI}^2 ROI against "
+              if jpeg["native_ms"] is not None else "")
+          + f"PIL {jpeg['pil_ms']:.2f} ms; loader cache cold "
+          f"{jpeg['cold_rois_per_s']:.1f} ROIs/s; .snap "
+          f"{jpeg['resume']['snap_mib']:.1f} MiB, write "
+          f"{jpeg['resume']['write_s']:.3f} s, read "
+          f"{jpeg['resume']['read_s']:.3f} s; launches {jpeg['launches']}; "
+          f"phase {jpeg['phase_s']:.1f} s ({card})")
     print("A18/A8 steps per step (bf16, 512^2, batch 16): " + "; ".join(
         f"{name}: host {r['host_ms']:.3f} ms, kernels "
         f"{r.get('kernel_ms', float('nan')):.3f} ms, busy "
@@ -3857,7 +4260,9 @@ def main() -> int:
                 c["kron_fwd"] for c in eval_chain.values()),
             "train_cv_MT --data_parallel -1 evals (rank 0) and "
             "test_cv_MT": dp["cli_launches"]["kron_fwd"]
-            + DP_CLI_EVALS // 2},
+            + DP_CLI_EVALS // 2,
+            "JPEG input chain (train_cv_MT, test_cv_MT, the resumed "
+            "fold)": jpeg["launches"]["kron_fwd"]},
         "kron_train_fwd": {
             "teacher train step (20 steps)": b1_launches,
             "student step, teacher_bn batch (20 steps)":
@@ -3892,7 +4297,9 @@ def main() -> int:
             "data-parallel student step, world 1 (5 steps)":
                 dp["MICCAI student"]["launches"]["kron_train_fwd"],
             "train_cv_MT --data_parallel -1 (rank 0)":
-                dp["cli_launches"]["kron_train_fwd"]},
+                dp["cli_launches"]["kron_train_fwd"],
+            "JPEG input chain (train_cv_MT, the resumed fold)":
+                jpeg["launches"]["kron_train_fwd"]},
         "kron_bwd_dw": {},
         "kron_bwd_dvec": {
             "saliency call": sal_launches["kron_bwd_dvec"],
@@ -3919,7 +4326,9 @@ def main() -> int:
                 + dyn_chain["test_cv_MT"]["conv3x3"],
             "pretrained train_cv_MT": pre_launches["conv3x3"],
             "exported paired artifacts, predict in a fresh python3 (2 x 2 "
-            "forwards)": served["predict_launches"]["conv3x3"]},
+            "forwards)": served["predict_launches"]["conv3x3"],
+            "JPEG input chain (train_cv_MT, test_cv_MT, the resumed "
+            "fold)": jpeg["launches"]["conv3x3"]},
     }
 
     kernels = [{
@@ -3987,7 +4396,7 @@ def main() -> int:
         "fp32_max_abs_err": conv_errs[torch.float32]})
     for k in kernels:
         k["launched_by"] = launched_by[k["name"]]
-    print(f"[chip_smoke] phases 1-38 in {time.perf_counter() - t_run:.1f} s "
+    print(f"[chip_smoke] phases 1-39 in {time.perf_counter() - t_run:.1f} s "
           f"(the sweep {sweep_s:.1f} s; {card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -53,7 +53,7 @@ from ..models.factory import define_model, is_dynamics
 from ..models.import_flax import flax_from_state_dict
 from ..parallel.mesh import (barrier, is_writer, launch_for,
                              setup_data_parallel)
-from ..utils.checkpoint import (load_train_state, save_checkpoint,
+from ..utils.checkpoint import (resume_train_state, save_checkpoint,
                                 save_train_state)
 from ..utils.logging import MetricsLogger
 from .import_state import param_tree
@@ -246,14 +246,13 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
     # mid-fold resume from the latest snapshot (full train state incl.
     # optimizer, EMA and banks)
     snap_path = os.path.join(ckpt_dir, f"{opt.model_name}_{fold}_state.pt")
-    start_epoch = opt.epoch_count
-    snap_extra = None
-    if opt.resume and opt.data_parallel:
-        barrier()   # rank 0 may still be writing the snapshot
-    if opt.resume and os.path.exists(snap_path):
-        done_epoch, snap_extra = load_train_state(snap_path, state)
-        start_epoch = done_epoch + 1
-        log(f"[fold {fold}] resumed from epoch {done_epoch}")
+    start_epoch, snap_extra = opt.epoch_count, None
+    if opt.resume:
+        if opt.data_parallel:
+            barrier()   # rank 0 may still be writing the snapshot
+        # the port's .pt, else the JAX package's .snap
+        start_epoch, snap_extra = resume_train_state(opt, state, ckpt_dir,
+                                                     fold, log)
 
     plateau = PlateauTracker() if opt.lr_policy == "plateau" else None
     if plateau is not None and snap_extra and "plateau" in snap_extra:

@@ -79,7 +79,7 @@ from ..models.import_flax import state_dict_from_flax
 from ..models.pathomic import PathomicOutput
 from ..parallel.mesh import (active, barrier, check_batch, is_writer,
                              launch_for)
-from ..utils.checkpoint import (load_checkpoint, load_train_state,
+from ..utils.checkpoint import (load_checkpoint, resume_train_state,
                                 save_checkpoint, save_train_state)
 from ..utils.logging import MetricsLogger
 from .ema import update_ema
@@ -521,14 +521,13 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
     mlog = MetricsLogger(ckpt_dir, run_name=f"student_fold{fold}",
                          enabled=writer)
     snap_path = os.path.join(ckpt_dir, f"{opt.model_name}_{fold}_state.pt")
-    start_epoch = opt.epoch_count
-    snap_extra = None
-    if opt.resume and opt.data_parallel:
-        barrier()   # rank 0 may still be writing the snapshot
-    if opt.resume and os.path.exists(snap_path):
-        done_epoch, snap_extra = load_train_state(snap_path, state)
-        start_epoch = done_epoch + 1
-        log(f"[fold {fold}] resumed from epoch {done_epoch}")
+    start_epoch, snap_extra = opt.epoch_count, None
+    if opt.resume:
+        if opt.data_parallel:
+            barrier()   # rank 0 may still be writing the snapshot
+        # the port's .pt, else the JAX package's .snap
+        start_epoch, snap_extra = resume_train_state(opt, state, ckpt_dir,
+                                                     fold, log)
     plateau = PlateauTracker() if opt.lr_policy == "plateau" else None
     if plateau is not None and snap_extra and "plateau" in snap_extra:
         plateau.load_state_dict(snap_extra["plateau"])

@@ -54,7 +54,7 @@ from ..losses import cox_loss, distill_kl, l1_regularizer, nll_loss
 from ..models.common import apply_act
 from ..models.factory import _dtype, define_model
 from ..parallel.mesh import barrier, is_writer, launch_for
-from ..utils.checkpoint import (load_train_state, save_checkpoint,
+from ..utils.checkpoint import (resume_train_state, save_checkpoint,
                                 save_train_state)
 from ..utils.logging import MetricsLogger
 from .ema import update_ema
@@ -243,14 +243,13 @@ def _train_fold(opt, fold, dev, train_loader, test_loader, patches_loader,
     mlog = MetricsLogger(ckpt_dir, run_name=f"clat_student_fold{fold}",
                          enabled=writer)
     snap_path = os.path.join(ckpt_dir, f"{opt.model_name}_{fold}_state.pt")
-    start_epoch = opt.epoch_count
-    snap_extra = None
-    if opt.resume and opt.data_parallel:
-        barrier()   # rank 0 may still be writing the snapshot
-    if opt.resume and os.path.exists(snap_path):
-        done_epoch, snap_extra = load_train_state(snap_path, state)
-        start_epoch = done_epoch + 1
-        log(f"[fold {fold}] resumed from epoch {done_epoch}")
+    start_epoch, snap_extra = opt.epoch_count, None
+    if opt.resume:
+        if opt.data_parallel:
+            barrier()   # rank 0 may still be writing the snapshot
+        # the port's .pt, else the JAX package's .snap
+        start_epoch, snap_extra = resume_train_state(opt, state, ckpt_dir,
+                                                     fold, log)
     plateau = PlateauTracker() if opt.lr_policy == "plateau" else None
     if plateau is not None and snap_extra and "plateau" in snap_extra:
         plateau.load_state_dict(snap_extra["plateau"])

@@ -132,7 +132,7 @@ def test_clat_student_snapshot_and_resume(tmp_path):
     res, _, _ = student_clat.train_clat_student(
         opt.replace(niter_decay=2, resume=True), data, 1, device="cpu",
         log=logs.append)
-    assert "[fold 1] resumed from epoch 1" in logs
+    assert "[fold 1] resumed from epoch 1 (s_1_state.pt)" in logs
     assert res["n"] == 4 and np.isfinite(res["probs"]["path"]).all()
 
 

@@ -5,7 +5,8 @@ the same seed must give exactly equal arrays.  The port's metrics are
 numpy and scipy where the JAX package's call scikit-learn: held to 1e-12
 on random predictions with many tied scores.  Also: the plateau tracker's
 state sequence, the prefetching loader on the CPU, the native JPEG decoder
-against PIL, and both argparse shims on the verbatim reference recipes of
+against PIL, its batch decode-and-crop against the JAX module's, and both
+argparse shims on the verbatim reference recipes of
 ``tests/test_cli_surface.py``.
 """
 import ast
@@ -156,6 +157,44 @@ def test_jpeg_decode_matches_pil(tmp_path):
             np.testing.assert_array_equal(
                 native_loader.decode_jpeg(fh.read()), want)
         assert native_loader.decode_jpeg(b"not a jpeg") is None
+
+
+@pytest.mark.parametrize("views,crop", [(1, 96), (2, 64), (3, 17)])
+def test_decode_crop_batch_matches_jax(tmp_path, views, crop):
+    """``native_loader.decode_crop_batch`` (the library's OpenMP loop)
+    against the JAX module's on the same files and seeds: equal bytes, each
+    window a window of the image PIL decodes; a crop larger than a file's
+    image gives None in both."""
+    from PIL import Image
+
+    from multimodal_learning_tpu.data import native_loader as jnative
+    from multimodal_learning_tpu_torch.data import native_loader
+    if not native_loader.available():
+        pytest.skip("the native decoder cannot be built here: "
+                    f"{native_loader.build_error()}")
+    rng = np.random.default_rng(1)
+    paths, images = [], []
+    for i, (h, w) in enumerate([(96, 96), (120, 100), (96, 130), (97, 96)]):
+        path = os.path.join(str(tmp_path), f"roi{i}.jpg")
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                        ).save(path, quality=90)
+        with Image.open(path) as im:
+            images.append(np.asarray(im.convert("RGB")))
+        paths.append(path)
+    seeds = [1, 2 ** 63 + 5, 0, 12345]
+    got = native_loader.decode_crop_batch(paths, views, crop, seeds)
+    want = jnative.decode_crop_batch(paths, views, crop, seeds)
+    assert want is not None and got.shape == (4, views, crop, crop, 3)
+    np.testing.assert_array_equal(got, want)
+    for img, windows in zip(images, got):
+        h, w = img.shape[:2]
+        for win in windows:
+            assert any(np.array_equal(img[t:t + crop, l:l + crop], win)
+                       for t in range(h - crop + 1)
+                       for l in range(w - crop + 1))
+    too_big = max(im.shape[0] for im in images) + 1
+    assert native_loader.decode_crop_batch(paths, 1, too_big, seeds) is None
+    assert jnative.decode_crop_batch(paths, 1, too_big, seeds) is None
 
 
 def _predictions(seed, n=40, n_classes=3):

@@ -258,7 +258,7 @@ def test_teacher_driver_world2_matches_world1_and_resumes(world2):
     assert len(s1) == len(s2) == 2
     np.testing.assert_allclose(s2, s1, rtol=1e-4)
     logs0, logs1 = (v["driver"]["logs"] for v in values)
-    assert "[fold 1] resumed from epoch 1" in logs0
+    assert "[fold 1] resumed from epoch 1 (dp2_1_state.pt)" in logs0
     assert logs1 == []
     want = world2["ref_driver"]["resumed"]
     for v in values:

@@ -156,7 +156,7 @@ def test_resume_continues_after_the_snapshot(tmp_path):
     logs = []
     res, _ = loop.train_teacher(_tiny(niter_decay=2, resume=True, **common),
                                 data, 1, device="cpu", log=logs.append)
-    assert "[fold 1] resumed from epoch 1" in logs
+    assert "[fold 1] resumed from epoch 1 (m_1_state.pt)" in logs
     assert res["n"] == 12
 
 

@@ -205,6 +205,7 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.masking.slic",
     "multimodal_learning_tpu_torch.utils",
     "multimodal_learning_tpu_torch.utils.checkpoint",
+    "multimodal_learning_tpu_torch.utils.flax_msgpack",
     "multimodal_learning_tpu_torch.utils.logging",
     "multimodal_learning_tpu_torch.serve",
     "multimodal_learning_tpu_torch.serve.export",
@@ -276,10 +277,11 @@ PANDAS_MODULES = [
 
 
 def test_port_imports_no_jax():
-    """Every port module (and chip_smoke.py) imports without JAX or the JAX
-    package, so the port runs on a machine that has neither, and without
-    scikit-learn; all but the library-level TCGA cleaning and plots
-    without pandas, which the training and serving paths do not need."""
+    """Every port module (and chip_smoke.py) imports without JAX, flax,
+    optax, msgpack or the JAX package, so the port runs on a machine that
+    has none of them, and without scikit-learn; all but the library-level
+    TCGA cleaning and plots without pandas, which the training and serving
+    paths do not need."""
     pkg_dir = os.path.join(REPO, "multimodal_learning_tpu_torch")
     found = {os.path.relpath(os.path.join(d, f), REPO)[:-3]
              .replace(os.sep, ".").removesuffix(".__init__")
@@ -292,7 +294,8 @@ def test_port_imports_no_jax():
         code = ("import importlib, sys\n"
                 f"for m in {modules!r}: importlib.import_module(m)\n"
                 "bad = [m for m in sys.modules if m.split('.')[0] in "
-                "('jax', 'jaxlib', 'flax', 'optax', 'multimodal_learning_tpu', "
+                "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', "
+                "'multimodal_learning_tpu', "
                 f"{banned})]\n"
                 "assert not bad, bad\n")
         subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
