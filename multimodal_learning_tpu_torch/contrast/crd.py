@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from ..models.common import init_linear_
+from ..utils.logging import span
 
 EPS = 1e-7
 
@@ -101,14 +102,16 @@ def crd_scores(bank: CRDBank, v1: torch.Tensor, v2: torch.Tensor,
     """Classic CRD memory forward (v1): ``idx[:, 0]`` is the positive.
     Returns ``(out_v1, out_v2)`` [B, S], already divided by Z; sets Z on the
     first call and updates the bank rows ``y`` in place."""
-    idx = idx.long()
-    w1 = bank.memory_v1[idx]                     # [B, S, D], copies
-    w2 = bank.memory_v2[idx]
-    out_v2 = torch.exp(torch.einsum("bsd,bd->bs", w1, v2) / T)
-    out_v1 = torch.exp(torch.einsum("bsd,bd->bs", w2, v1) / T)
-    set_z(bank, out_v1, out_v2)
-    out_v1, out_v2 = out_v1 / bank.z_v1, out_v2 / bank.z_v2
-    bank_update(bank, v1, v2, y, momentum)
+    with span("contrast.scores"):
+        idx = idx.long()
+        w1 = bank.memory_v1[idx]                 # [B, S, D], copies
+        w2 = bank.memory_v2[idx]
+        out_v2 = torch.exp(torch.einsum("bsd,bd->bs", w1, v2) / T)
+        out_v1 = torch.exp(torch.einsum("bsd,bd->bs", w2, v1) / T)
+        set_z(bank, out_v1, out_v2)
+        out_v1, out_v2 = out_v1 / bank.z_v1, out_v2 / bank.z_v2
+    with span("contrast.bank_update"):
+        bank_update(bank, v1, v2, y, momentum)
     return out_v1, out_v2
 
 

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 from torch.nn import functional as F
 
+from ..utils.logging import span
 from .crd import EPS, CRDBank, bank_update, set_z
 
 
@@ -111,45 +112,47 @@ def crd_v10_scores(
     student queries, and ``sim_for_t`` vice versa.  ``centers`` takes its
     k-means noise from ``gumbel`` [2, C, n_data] (bank v1, bank v2), or
     draws it from ``generator``."""
-    idx = idx.long()
-    labels = batch_label.long()
-    mem1, mem2 = bank.memory_v1, bank.memory_v2
-    w1, w2 = mem1[idx], mem2[idx]                         # [B, 1+K, D]
-    sim1 = sim2 = None
-    if pos_extra == "neighbors":
-        bmask = class_mask[labels]                        # [B, n_data]
-        knn1, sim1 = _knn(mem1, w1[:, 0], bmask, num_pos)
-        knn2, sim2 = _knn(mem2, w2[:, 0], bmask, num_pos)
-        w1 = torch.cat([knn1, w1[:, 1:]], dim=1)
-        w2 = torch.cat([knn2, w2[:, 1:]], dim=1)
-    elif pos_extra == "centers":
-        C = class_mask.shape[0]
-        if gumbel is None and num_pos > 2:
-            gumbel = draw_gumbel(generator, C, mem1.shape[0], mem1.device)
-        c1 = class_centers(mem1, class_mask, num_pos,
-                           None if gumbel is None else gumbel[0])
-        c2 = class_centers(mem2, class_mask, num_pos,
-                           None if gumbel is None else gumbel[1])
-        # the other classes of each sample, ascending (``:98-101``): a
-        # stable argsort of the one-hot leaves the own class last
-        order = torch.argsort(F.one_hot(labels, C), dim=1,
-                              stable=True)[:, :C - 1]
-        B, D = v1.shape[0], c1.shape[-1]
+    with span("contrast.scores"):
+        idx = idx.long()
+        labels = batch_label.long()
+        mem1, mem2 = bank.memory_v1, bank.memory_v2
+        w1, w2 = mem1[idx], mem2[idx]                         # [B, 1+K, D]
+        sim1 = sim2 = None
+        if pos_extra == "neighbors":
+            bmask = class_mask[labels]                        # [B, n_data]
+            knn1, sim1 = _knn(mem1, w1[:, 0], bmask, num_pos)
+            knn2, sim2 = _knn(mem2, w2[:, 0], bmask, num_pos)
+            w1 = torch.cat([knn1, w1[:, 1:]], dim=1)
+            w2 = torch.cat([knn2, w2[:, 1:]], dim=1)
+        elif pos_extra == "centers":
+            C = class_mask.shape[0]
+            if gumbel is None and num_pos > 2:
+                gumbel = draw_gumbel(generator, C, mem1.shape[0], mem1.device)
+            c1 = class_centers(mem1, class_mask, num_pos,
+                               None if gumbel is None else gumbel[0])
+            c2 = class_centers(mem2, class_mask, num_pos,
+                               None if gumbel is None else gumbel[1])
+            # the other classes of each sample, ascending (``:98-101``): a
+            # stable argsort of the one-hot leaves the own class last
+            order = torch.argsort(F.one_hot(labels, C), dim=1,
+                                  stable=True)[:, :C - 1]
+            B, D = v1.shape[0], c1.shape[-1]
 
-        def expand(cc, w):
-            return torch.cat([cc[labels], w,
-                              cc[order].reshape(B, -1, D)], dim=1)
+            def expand(cc, w):
+                return torch.cat([cc[labels], w,
+                                  cc[order].reshape(B, -1, D)], dim=1)
 
-        w1, w2 = expand(c1, w1), expand(c2, w2)
-    elif pos_extra != "none":
-        raise NotImplementedError(pos_extra)
+            w1, w2 = expand(c1, w1), expand(c2, w2)
+        elif pos_extra != "none":
+            raise NotImplementedError(pos_extra)
 
-    out_v2 = torch.exp(torch.einsum("bsd,bd->bs", w1, v2) / T)
-    out_v1 = torch.exp(torch.einsum("bsd,bd->bs", w2, v1) / T)
-    set_z(bank, out_v1, out_v2)
-    out_v1, out_v2 = out_v1 / bank.z_v1, out_v2 / bank.z_v2
+        out_v2 = torch.exp(torch.einsum("bsd,bd->bs", w1, v2) / T)
+        out_v1 = torch.exp(torch.einsum("bsd,bd->bs", w2, v1) / T)
+        set_z(bank, out_v1, out_v2)
+        out_v1, out_v2 = out_v1 / bank.z_v1, out_v2 / bank.z_v2
     if update_bank:
-        bank_update(bank, v1, v2, y, momentum)
+        with span("contrast.bank_update"):
+            bank_update(bank, v1, v2, y, momentum)
     # out_v1 scores the student query against the teacher bank: weigh the
     # student's loss by the teacher-bank similarities (sim2), and vice versa
     return out_v1, out_v2, sim2, sim1

@@ -16,6 +16,14 @@ its memory is not reused while the step still reads it.  Pinned buffers
 come from PyTorch's caching host allocator, which hands a buffer out again
 only after the copy that read it has completed.
 
+Each batch is one request of the recorder (``utils/logging``), drawn by
+``Loader`` on the thread that builds it: its spans ``loader.crops`` and
+``loader.stack``, the producer's ``prefetch.pin`` and ``prefetch.copy``,
+and the consumer's ``prefetch.wait``, which hands the batch's request to
+the consumer's thread, so that the step that runs on it shares it; the
+consumer counts ``prefetch.gets`` and ``prefetch.ready`` (the batch was
+queued before it was asked for).
+
 Batch dict layout (train, mode=pathomic):
     path_views [B, 2, S, S, 3] uint8   two random crops (TransformTwice)
     omic       [B, 80] float32
@@ -38,6 +46,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import process_slice
+from ..utils.logging import bind, bound, count, new_request, span
 from .sampling import ContrastSampler
 
 
@@ -206,13 +215,15 @@ class Loader:
                                 np.random.default_rng(int(s)),
                                 with_mask=with_mask)
 
-            out = list(self.pool.map(job, zip(idx, seeds)))
-            if with_mask:
-                batch["path_views"] = np.stack([v for v, _ in out])
-                batch["sp_mask"] = np.stack([m for _, m in out]).astype(
-                    np.int32)
-            else:
-                batch["path_views"] = np.stack(out)  # [B, V, S, S, 3]
+            with span("loader.crops"):
+                out = list(self.pool.map(job, zip(idx, seeds)))
+            with span("loader.stack"):
+                if with_mask:
+                    batch["path_views"] = np.stack([v for v, _ in out])
+                    batch["sp_mask"] = np.stack([m for _, m in out]).astype(
+                        np.int32)
+                else:
+                    batch["path_views"] = np.stack(out)  # [B, V, S, S, 3]
         if sample_idx is not None:
             batch["sample_idx"] = mine(sample_idx)
         return batch
@@ -226,6 +237,7 @@ class Loader:
             idx = order[b * self.bs:(b + 1) * self.bs]
             if len(idx) == 0:
                 return
+            new_request()
             yield self._make_batch(idx)
 
 
@@ -256,17 +268,22 @@ class PrefetchLoader:
             for host in self.loader:
                 if stop.is_set():
                     return
+                rid = bound()
                 if side is None:
                     q.put(({k: torch.from_numpy(v) for k, v in host.items()},
-                           None))
+                           None, rid))
                     continue
                 with torch.cuda.device(self.device), torch.cuda.stream(side):
-                    batch = {k: torch.from_numpy(v).pin_memory().to(
-                        self.device, non_blocking=True)
-                        for k, v in host.items()}
-                    ready = torch.cuda.Event()
-                    ready.record(side)
-                q.put((batch, ready))
+                    with span("prefetch.pin"):
+                        pinned = {k: torch.from_numpy(v).pin_memory()
+                                  for k, v in host.items()}
+                    with span("prefetch.copy"):
+                        batch = {k: v.to(self.device, non_blocking=True)
+                                 for k, v in pinned.items()}
+                        ready = torch.cuda.Event()
+                        ready.record(side)
+                    del pinned
+                q.put((batch, ready, rid))
             q.put(_DONE)
         except Exception as exc:
             q.put(exc)
@@ -279,12 +296,19 @@ class PrefetchLoader:
         th.start()
         try:
             while True:
-                item = q.get()
+                with span("prefetch.wait"):
+                    queued = not q.empty()
+                    item = q.get()
+                    is_batch = isinstance(item, tuple)
+                    bind(item[2] if is_batch else None)
+                    if is_batch:
+                        count("prefetch.gets")
+                        count("prefetch.ready", queued)
                 if item is _DONE:
                     return
                 if isinstance(item, Exception):
                     raise item
-                batch, ready = item
+                batch, ready, _ = item
                 if ready is not None:
                     stream = torch.cuda.current_stream(self.device)
                     stream.wait_event(ready)

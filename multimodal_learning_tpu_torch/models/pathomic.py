@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from ..utils.logging import span
 from .common import apply_act, init_linear_
 from .fusion import BilinearFusion, HFBFusion, LMFusion, PolynomialFusion
 from .maxnet import MaxNet
@@ -141,16 +142,20 @@ class PathomicModel(nn.Module):
     def forward(self, x_path=None, x_omic=None,
                 path_feats=None) -> PathomicOutput:
         """``path_feats``: precomputed ``(path_feat_f3, path_feat,
-        hazard_path, pred_path)`` in place of running ``path_net``."""
+        hazard_path, pred_path)`` in place of running ``path_net``.  Each
+        part that runs is a span of the recorder (``utils/logging``):
+        ``path_net``, ``omic_net``, ``fusion``, ``classifier``."""
         path_feat = omic_feat = path_feat_f3 = None
         hazard_path = hazard_omic = pred_path = pred_omic = None
         if path_feats is not None:
             path_feat_f3, path_feat, hazard_path, pred_path = path_feats
         elif x_path is not None:
-            path_feat_f3, path_feat, hazard_path, pred_path = self.path_net(
-                x_path)
+            with span("path_net"):
+                path_feat_f3, path_feat, hazard_path, pred_path = \
+                    self.path_net(x_path)
         if x_omic is not None:
-            omic_feat, hazard_omic, pred_omic = self.omic_net(x_omic)
+            with span("omic_net"):
+                omic_feat, hazard_omic, pred_omic = self.omic_net(x_omic)
 
         if path_feat is None or x_omic is None:
             return PathomicOutput(None, path_feat, omic_feat, path_feat_f3,
@@ -160,12 +165,14 @@ class PathomicModel(nn.Module):
         pv, ov = path_feat, omic_feat
         if self.cut_fuse_grad:  # networks_new.py:302-306
             pv, ov = pv.detach(), ov.detach()
-        if self.fusion is None:  # concat
-            fuse_feat = torch.cat([pv, ov], dim=1)
-        else:
-            fuse_feat = self.fusion(pv, ov)
-        hazard_fuse = self.classifier(fuse_feat)
-        pred_fuse = apply_act(self.act_type, hazard_fuse)
+        with span("fusion"):
+            if self.fusion is None:  # concat
+                fuse_feat = torch.cat([pv, ov], dim=1)
+            else:
+                fuse_feat = self.fusion(pv, ov)
+        with span("classifier"):
+            hazard_fuse = self.classifier(fuse_feat)
+            pred_fuse = apply_act(self.act_type, hazard_fuse)
         return PathomicOutput(fuse_feat, path_feat, omic_feat, path_feat_f3,
                               hazard_fuse, hazard_path, hazard_omic,
                               pred_fuse, pred_path, pred_omic)

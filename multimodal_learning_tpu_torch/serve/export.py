@@ -43,6 +43,7 @@ from torch import nn
 
 from ..models.factory import _dtype, is_dynamics
 from ..models.pathomic import PathomicOutput
+from ..utils.logging import count, new_request, span
 
 _BRANCHES = ("hazard_fuse", "hazard_path", "hazard_omic",
              "pred_fuse", "pred_path", "pred_omic")
@@ -118,15 +119,21 @@ def make_infer_fn(opt, model) -> Callable:
     """Serving forward of ``model`` (put in eval mode) on the device that
     holds its parameters, run eagerly.  Inputs may be numpy arrays or
     tensors on any device; outputs are float32 tensors on the model's
-    device."""
+    device.  Each call is one request of the recorder (``utils/logging``):
+    ``serve.infer`` holds ``serve.copy_in``, both inputs onto the device
+    (counter ``serve.copy_in_bytes``), and ``serve.forward``."""
     fwd = ServingForward(opt, model)
     dev = _device(model)
 
     def infer(x_path, x_omic) -> Dict[str, torch.Tensor]:
-        with torch.inference_mode():
-            return fwd(torch.as_tensor(x_path, device=dev),
-                       torch.as_tensor(x_omic, dtype=torch.float32,
-                                       device=dev))
+        new_request()
+        with span("serve.infer"), torch.inference_mode():
+            with span("serve.copy_in"):
+                xp = torch.as_tensor(x_path, device=dev)
+                xo = torch.as_tensor(x_omic, dtype=torch.float32, device=dev)
+            count("serve.copy_in_bytes", xp.nbytes + xo.nbytes)
+            with span("serve.forward"):
+                return fwd(xp, xo)
 
     return infer
 

@@ -72,6 +72,7 @@ from ..models.fusion import _KronEncoder1
 from ..models.import_torch import apply_pretrained
 from ..models.pathomic import PathomicOutput
 from ..parallel.mesh import active, gather_rows
+from ..utils.logging import span
 from .ema import update_ema
 from .optim import make_optimizer
 from .state import TrainState, TsvdAux
@@ -363,7 +364,12 @@ def build_teacher_train_step(opt, masking: bool = False):
     ``index`` [B] and ``sample_idx`` [B, 1 + nce_k] (column 0 the
     positive).  ``tsvd_update``, a host bool, says whether a
     ``--tSVD_loss`` step refreshes the ADMM tensors.  The masked step
-    (``masking=True``) takes 4 views and ``sp_mask`` [B, H, W] int32."""
+    (``masking=True``) takes 4 views and ``sp_mask`` [B, H, W] int32.
+
+    The step's phases are spans of the recorder (``utils/logging``):
+    ``step.augment``, ``step.forward``, ``step.losses``, ``step.backward``
+    and ``step.optimizer`` (zero_grad, Adam, the EMA update); the masked
+    step's saliency pass lies outside them."""
     if masking and opt.mode != "pathomic":
         raise ValueError("the masked step needs --mode pathomic")
     if masking and opt.masking_bn not in ("chain", "discard"):
@@ -388,92 +394,102 @@ def build_teacher_train_step(opt, masking: bool = False):
         dev = batch["omic"].device
         x1 = x2 = masks = r0 = None
         if masking:
-            views, sp_mask = augment_views_with_mask(
-                state.generator, batch["path_views"], batch["sp_mask"],
-                dtype=dtype)
-            x1, x2, xm1, xm2 = views.unbind(1)
+            with span("step.augment"):
+                views, sp_mask = augment_views_with_mask(
+                    state.generator, batch["path_views"], batch["sp_mask"],
+                    dtype=dtype)
+                x1, x2, xm1, xm2 = views.unbind(1)
             masks = _saliency_masks(opt, model, x1, batch, sp_mask)
             if opt.masking_bn == "chain":
                 r0 = _buffers(model.path_net)
         elif use_images:
-            views = augment_views(state.generator, batch["path_views"],
-                                  dtype=dtype)
-            x1, x2 = views[:, 0], views[:, 1]
-        with torch.no_grad():
-            ema_out = adapt_output(opt, _apply(opt, ema, batch, x2))
-        out_rows = adapt_output(opt, _apply(opt, model, batch, x1))
-        (out, ema_out), gb = gather_outputs((out_rows, ema_out), batch)
-        loss_task, metrics = task_losses(opt, out, gb)
-        loss = (opt.lambda_nll if opt.task == "grad" else opt.lambda_cox) \
-            * loss_task
-        loss = loss + opt.lambda_reg * l1_regularizer(model, opt.reg_type)
-        zero = torch.zeros((), device=dev)
+            with span("step.augment"):
+                views = augment_views(state.generator, batch["path_views"],
+                                      dtype=dtype)
+                x1, x2 = views[:, 0], views[:, 1]
+        with span("step.forward"):
+            with torch.no_grad():
+                ema_out = adapt_output(opt, _apply(opt, ema, batch, x2))
+            out_rows = adapt_output(opt, _apply(opt, model, batch, x1))
+            (out, ema_out), gb = gather_outputs((out_rows, ema_out), batch)
+        with span("step.losses"):
+            loss_task, metrics = task_losses(opt, out, gb)
+            loss = (opt.lambda_nll if opt.task == "grad" else opt.lambda_cox) \
+                * loss_task
+            loss = loss + opt.lambda_reg * l1_regularizer(model, opt.reg_type)
+            zero = torch.zeros((), device=dev)
 
-        metrics["loss_CRD"] = zero
-        if opt.CRD_distill == 1:
-            f_s = state.embeds["crd_fuse_s"](_branch_feat(opt, out))
-            f_t = state.embeds["crd_fuse_t"](_branch_feat(opt, ema_out))
-            out_s, out_t = crd_scores(
-                state.banks["fuse"], f_s, f_t, gb["index"],
-                gb["sample_idx"], T=opt.nce_t, momentum=opt.nce_m)
-            if opt.CRD_gate:
-                # weighted_CRDLoss (CRD_loss.py:8-50): each anchor side by
-                # whose per-sample NLL is larger
-                g_col = gb["g"].long()[:, None]
-                s_w, t_w = crd_gate_weights(
-                    -_branch_pred(opt, out).gather(1, g_col)[:, 0],
-                    -_branch_pred(opt, ema_out).gather(1, g_col)[:, 0])
-                loss_crd = (weighted_contrast_loss(out_s, s_w, opt.n_data)
-                            + weighted_contrast_loss(out_t, t_w, opt.n_data))
-            else:
-                loss_crd = (contrast_loss(out_s, opt.n_data, n_pos=n_pos)
-                            + contrast_loss(out_t, opt.n_data, n_pos=n_pos))
-            metrics["loss_CRD"] = crd_weight * loss_crd
-            loss = loss + metrics["loss_CRD"]
+            metrics["loss_CRD"] = zero
+            if opt.CRD_distill == 1:
+                f_s = state.embeds["crd_fuse_s"](_branch_feat(opt, out))
+                f_t = state.embeds["crd_fuse_t"](_branch_feat(opt, ema_out))
+                out_s, out_t = crd_scores(
+                    state.banks["fuse"], f_s, f_t, gb["index"],
+                    gb["sample_idx"], T=opt.nce_t, momentum=opt.nce_m)
+                if opt.CRD_gate:
+                    # weighted_CRDLoss (CRD_loss.py:8-50): each anchor side by
+                    # whose per-sample NLL is larger
+                    g_col = gb["g"].long()[:, None]
+                    s_w, t_w = crd_gate_weights(
+                        -_branch_pred(opt, out).gather(1, g_col)[:, 0],
+                        -_branch_pred(opt, ema_out).gather(1, g_col)[:, 0])
+                    loss_crd = (
+                        weighted_contrast_loss(out_s, s_w, opt.n_data)
+                        + weighted_contrast_loss(out_t, t_w, opt.n_data))
+                else:
+                    loss_crd = (
+                        contrast_loss(out_s, opt.n_data, n_pos=n_pos)
+                        + contrast_loss(out_t, opt.n_data, n_pos=n_pos))
+                metrics["loss_CRD"] = crd_weight * loss_crd
+                loss = loss + metrics["loss_CRD"]
 
-        metrics["loss_KD"] = zero
-        if opt.pred_distill == 1:
-            metrics["loss_KD"] = opt.KD_weight * pred_kd(opt, out, ema_out)
-            loss = loss + metrics["loss_KD"]
+            metrics["loss_KD"] = zero
+            if opt.pred_distill == 1:
+                metrics["loss_KD"] = opt.KD_weight * pred_kd(opt, out, ema_out)
+                loss = loss + metrics["loss_KD"]
 
-        metrics["loss_SP"] = zero
-        if opt.SP_distill == 1 and opt.mode == "pathomic":
-            metrics["loss_SP"] = opt.SP_weight * (
-                sp_loss(out.fuse_feat, ema_out.fuse_feat)
-                + sp_loss(out.path_feat, ema_out.path_feat)
-                + sp_loss(out.omic_feat, ema_out.omic_feat)) / 3.0
-            loss = loss + metrics["loss_SP"]
+            metrics["loss_SP"] = zero
+            if opt.SP_distill == 1 and opt.mode == "pathomic":
+                metrics["loss_SP"] = opt.SP_weight * (
+                    sp_loss(out.fuse_feat, ema_out.fuse_feat)
+                    + sp_loss(out.path_feat, ema_out.path_feat)
+                    + sp_loss(out.omic_feat, ema_out.omic_feat)) / 3.0
+                loss = loss + metrics["loss_SP"]
 
-        if opt.orth_loss and opt.mode == "pathomic":
-            loss = loss + orth_loss(out.path_feat, out.omic_feat)
+            if opt.orth_loss and opt.mode == "pathomic":
+                loss = loss + orth_loss(out.path_feat, out.omic_feat)
 
-        if opt.supcon_distill == 1:
-            # live semantics for a flag the reference parses but never
-            # uses (options.py:98-99), as the JAX step gives it
-            views = torch.stack([
-                f / torch.linalg.vector_norm(f, dim=1, keepdim=True
-                                             ).clamp_min(1e-12)
-                for f in (_branch_feat(opt, out), _branch_feat(opt, ema_out))
-            ], dim=1)
-            metrics["loss_supcon"] = opt.supcon_weight * supcon_loss(
-                views, labels=gb["g"])
-            loss = loss + metrics["loss_supcon"]
+            if opt.supcon_distill == 1:
+                # live semantics for a flag the reference parses but never
+                # uses (options.py:98-99), as the JAX step gives it
+                views = torch.stack([
+                    f / torch.linalg.vector_norm(f, dim=1, keepdim=True
+                                                 ).clamp_min(1e-12)
+                    for f in (_branch_feat(opt, out),
+                              _branch_feat(opt, ema_out))
+                ], dim=1)
+                metrics["loss_supcon"] = opt.supcon_weight * supcon_loss(
+                    views, labels=gb["g"])
+                loss = loss + metrics["loss_supcon"]
 
-        if masking:
-            metrics["loss_masking"] = _masking_loss(
-                opt, model, ema, batch, out_rows, x1, xm1, xm2, masks, r0)
-            loss = loss + metrics["loss_masking"]
+            if masking:
+                metrics["loss_masking"] = _masking_loss(
+                    opt, model, ema, batch, out_rows, x1, xm1, xm2, masks, r0)
+                loss = loss + metrics["loss_masking"]
 
-        if _use_tsvd(opt):
-            metrics.update(_tsvd_loss(opt, state.banks["tsvd"], out, ema_out,
-                                      tsvd_update))
-            loss = loss + metrics["loss_tsvd"]
-        metrics["loss"] = loss
+            if _use_tsvd(opt):
+                metrics.update(_tsvd_loss(opt, state.banks["tsvd"], out,
+                                          ema_out, tsvd_update))
+                loss = loss + metrics["loss_tsvd"]
+            metrics["loss"] = loss
 
-        state.optimizer.zero_grad()
-        loss.backward()
-        state.optimizer.step()
-        update_ema(model, ema, opt.ema_decay, state.step)
+        with span("step.optimizer"):
+            state.optimizer.zero_grad()
+        with span("step.backward"):
+            loss.backward()
+        with span("step.optimizer"):
+            state.optimizer.step()
+            update_ema(model, ema, opt.ema_decay, state.step)
         state.step += 1
 
         # train accuracy counts (train_test_MT.py:254-260) / risk outputs

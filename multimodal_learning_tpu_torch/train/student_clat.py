@@ -56,7 +56,7 @@ from ..models.factory import _dtype, define_model
 from ..parallel.mesh import barrier, is_writer, launch_for
 from ..utils.checkpoint import (resume_train_state, save_checkpoint,
                                 save_train_state)
-from ..utils.logging import MetricsLogger
+from ..utils.logging import MetricsLogger, span
 from .ema import update_ema
 from .loop import evaluate, fold_payload, rank_setup
 from .schedules import PlateauTracker, make_lr_schedule
@@ -86,7 +86,12 @@ def build_clat_student_step(opt, teacher: nn.Module,
     ``reweight_on`` is a host bool (``epoch >= start_reweight``);
     ``gumbel`` ({"fuse"|"ema": [2, C, n_data]}) replaces the k-means noise
     the ``centers`` positives would draw from ``state.generator``.
-    Metrics keep the JAX names and stay on the device."""
+    Metrics keep the JAX names and stay on the device.
+
+    The step's phases are spans of the recorder (``utils/logging``), as
+    the teacher step's: ``step.augment``, ``step.forward``,
+    ``step.losses`` (in it ``contrast.scores``, ``contrast.bank_update``
+    and ``gk_refine``), ``step.backward``, ``step.optimizer``."""
     _check_clat_flags(opt)
     dtype = _dtype(opt)
     cmask = class_mask.float()
@@ -96,80 +101,90 @@ def build_clat_student_step(opt, teacher: nn.Module,
     def step(state: TrainState, batch, reweight_on: bool,
              gumbel: Optional[Dict[str, torch.Tensor]] = None):
         model, ema = state.model.train(), state.ema_model.train()
-        views = augment_views(state.generator, batch["path_views"],
-                              dtype=dtype)
-        x1, x2 = views[:, 0], views[:, 1]
-        with torch.no_grad():
-            _, ema_feat, ema_logit, _ = ema(x2)
-        t_out = frozen_teacher_forward(opt, teacher, x1, batch["omic"],
-                                       state.teacher_generator)
+        with span("step.augment"):
+            views = augment_views(state.generator, batch["path_views"],
+                                  dtype=dtype)
+            x1, x2 = views[:, 0], views[:, 1]
+        with span("step.forward"):
+            with torch.no_grad():
+                _, ema_feat, ema_logit, _ = ema(x2)
+            t_out = frozen_teacher_forward(opt, teacher, x1, batch["omic"],
+                                           state.teacher_generator)
 
-        _, path_feat, _, pred_path = model(x1)
-        (rows,), batch = gather_outputs(
-            [(path_feat, pred_path, ema_feat, ema_logit, t_out.fuse_feat,
-              t_out.hazard_fuse)], batch)
+            _, path_feat, _, pred_path = model(x1)
+            (rows,), batch = gather_outputs(
+                [(path_feat, pred_path, ema_feat, ema_logit, t_out.fuse_feat,
+                  t_out.hazard_fuse)], batch)
         path_feat, pred_path, ema_feat, ema_logit, t_fuse_feat, t_hazard = \
             rows
-        bsz, g = path_feat.shape[0], batch["g"]
-        loss_cls = (cox_loss(batch["t"], batch["e"], pred_path)
-                    if opt.task == "surv" else nll_loss(pred_path, g))
-        fc = model.fc_new2
-        logit = F.linear(path_feat, fc.weight, fc.bias)   # float32
+        with span("step.losses"):
+            bsz, g = path_feat.shape[0], batch["g"]
+            loss_cls = (cox_loss(batch["t"], batch["e"], pred_path)
+                        if opt.task == "surv" else nll_loss(pred_path, g))
+            fc = model.fc_new2
+            logit = F.linear(path_feat, fc.weight, fc.bias)   # float32
 
-        # query-discrepancy sample weights (:359-377)
-        prob_s = torch.softmax(logit.detach(), 1)
-        ws = {}
-        for name, t_logit in (("fuse", t_hazard),
-                              ("ema", ema_logit)):
-            w = assign_sample_weights(prob_s, torch.softmax(t_logit, 1), g,
-                                      opt.max_discrep, opt.label_dim)
-            ws[name] = w + 1.0 if reweight_on else torch.ones_like(w)
+            # query-discrepancy sample weights (:359-377)
+            prob_s = torch.softmax(logit.detach(), 1)
+            ws = {}
+            for name, t_logit in (("fuse", t_hazard),
+                                  ("ema", ema_logit)):
+                w = assign_sample_weights(prob_s, torch.softmax(t_logit, 1),
+                                          g, opt.max_discrep, opt.label_dim)
+                ws[name] = w + 1.0 if reweight_on else torch.ones_like(w)
 
-        kd = {"div1": alpha * distill_kl(logit, t_hazard,
-                                         opt.kd_T, per_sample=True),
-              "div2": alpha * distill_kl(logit, ema_logit, opt.kd_T,
-                                         per_sample=True)}
-        if opt.distill == "crd":
-            t_feats = {"fuse": t_fuse_feat, "ema": ema_feat}
-            for i, name in enumerate(("fuse", "ema"), 1):
-                f_s = state.embeds[f"crd_{name}_s"](path_feat)
-                f_t = state.embeds[f"crd_{name}_t"](t_feats[name])
-                out_s, out_t, sim_s, sim_t = crd_v10_scores(
-                    state.banks[name], f_s, f_t, g, batch["index"],
-                    batch["sample_idx"], class_mask=cmask,
-                    num_pos=opt.nce_p, pos_extra=opt.pos_extra,
-                    T=opt.nce_t, momentum=opt.nce_m,
-                    gumbel=gumbel.get(name) if gumbel else None,
-                    generator=state.generator, update_bank=True)
-                _, sl_s = contrast_loss_v10(out_s, opt.n_data, opt.nce_p,
-                                            ws[name], sim_s)
-                _, sl_t = contrast_loss_v10(out_t, opt.n_data, opt.nce_p,
-                                            ws[name], sim_t)
-                kd[f"kd{i}"] = beta * (sl_s + sl_t)
-        kd_vals = [kd[k] for k in sorted(kd)]    # per-sample [B] each
+            kd = {"div1": alpha * distill_kl(logit, t_hazard,
+                                             opt.kd_T, per_sample=True),
+                  "div2": alpha * distill_kl(logit, ema_logit, opt.kd_T,
+                                             per_sample=True)}
+            if opt.distill == "crd":
+                t_feats = {"fuse": t_fuse_feat, "ema": ema_feat}
+                for i, name in enumerate(("fuse", "ema"), 1):
+                    f_s = state.embeds[f"crd_{name}_s"](path_feat)
+                    f_t = state.embeds[f"crd_{name}_t"](t_feats[name])
+                    out_s, out_t, sim_s, sim_t = crd_v10_scores(
+                        state.banks[name], f_s, f_t, g, batch["index"],
+                        batch["sample_idx"], class_mask=cmask,
+                        num_pos=opt.nce_p, pos_extra=opt.pos_extra,
+                        T=opt.nce_t, momentum=opt.nce_m,
+                        gumbel=gumbel.get(name) if gumbel else None,
+                        generator=state.generator, update_bank=True)
+                    _, sl_s = contrast_loss_v10(out_s, opt.n_data, opt.nce_p,
+                                                ws[name], sim_s)
+                    _, sl_t = contrast_loss_v10(out_t, opt.n_data, opt.nce_p,
+                                                ws[name], sim_t)
+                    kd[f"kd{i}"] = beta * (sl_s + sl_t)
+            kd_vals = [kd[k] for k in sorted(kd)]    # per-sample [B] each
 
-        if opt.assign_weights:
-            # each summed per-sample loss's gradient at the feature is the
-            # per-sample gradient: loss[b] depends on feat[b] alone
-            grads = feature_grads([v.sum() / bsz for v in kd_vals]
-                                  + [nll_loss(apply_act(opt.act_type, logit),
-                                              g)], path_feat)
-            scale = gk_refine_thresh_weights(grads, opt.grads_thresh,
-                                             use_thresh=opt.use_grads_thresh)
-            # sum_b sum_j scale[b, j] loss_j[b] / B (:117)
-            loss_kd = (scale[:, :len(kd_vals)]
-                       * torch.stack(kd_vals, dim=1)).sum() / bsz
-            mean_scale = scale.mean(dim=0)
-        else:
-            loss_kd = sum(v.sum() / bsz for v in kd_vals)
-            mean_scale = torch.zeros(len(kd_vals) + 1, device=logit.device)
+            if opt.assign_weights:
+                # each summed per-sample loss's gradient at the feature is
+                # the per-sample gradient: loss[b] depends on feat[b] alone
+                with span("gk_refine"):
+                    grads = feature_grads(
+                        [v.sum() / bsz for v in kd_vals]
+                        + [nll_loss(apply_act(opt.act_type, logit), g)],
+                        path_feat)
+                    scale = gk_refine_thresh_weights(
+                        grads, opt.grads_thresh,
+                        use_thresh=opt.use_grads_thresh)
+                # sum_b sum_j scale[b, j] loss_j[b] / B (:117)
+                loss_kd = (scale[:, :len(kd_vals)]
+                           * torch.stack(kd_vals, dim=1)).sum() / bsz
+                mean_scale = scale.mean(dim=0)
+            else:
+                loss_kd = sum(v.sum() / bsz for v in kd_vals)
+                mean_scale = torch.zeros(len(kd_vals) + 1,
+                                         device=logit.device)
 
-        loss = (opt.lambda_nll * loss_cls + opt.lambda_reg * l1_regularizer(
-            model, opt.reg_type) + loss_kd)
-        state.optimizer.zero_grad()
-        loss.backward()
-        state.optimizer.step()
-        update_ema(model, ema, opt.ema_decay, state.step)
+            loss = (opt.lambda_nll * loss_cls + opt.lambda_reg
+                    * l1_regularizer(model, opt.reg_type) + loss_kd)
+        with span("step.optimizer"):
+            state.optimizer.zero_grad()
+        with span("step.backward"):
+            loss.backward()
+        with span("step.optimizer"):
+            state.optimizer.step()
+            update_ema(model, ema, opt.ema_decay, state.step)
         state.step += 1
 
         metrics = {"loss": loss, "loss_cls": loss_cls, "loss_KD": loss_kd,

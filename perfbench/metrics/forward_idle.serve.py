@@ -1,0 +1,15 @@
+"""Share of the traced block in which the device sat idle while the
+dispatching thread was inside the serving call's ``serve.forward`` or a
+span within it (gaps placed by their midpoint, as
+``breakdown.idle_by_span``), in %."""
+from perfbench import program
+
+
+def read(run):
+    prog, t = getattr(run, "program", None), run.trace
+    if run.kind != "serve" or prog is None or t is None \
+            or not (t.kernels or t.copies) or not prog.events:
+        return None
+    idle = sum(s for path, s in program.idle_by_span(t, prog)
+               if "serve.forward" in path.split("/"))
+    return 100.0 * idle / t.window_s
