@@ -44,6 +44,7 @@ from torch import nn
 from ..models.factory import _dtype, is_dynamics
 from ..models.pathomic import PathomicOutput
 from ..utils.logging import count, new_request, span
+from .staging import CopyIn
 
 _BRANCHES = ("hazard_fuse", "hazard_path", "hazard_omic",
              "pred_fuse", "pred_path", "pred_omic")
@@ -121,16 +122,17 @@ def make_infer_fn(opt, model) -> Callable:
     tensors on any device; outputs are float32 tensors on the model's
     device.  Each call is one request of the recorder (``utils/logging``):
     ``serve.infer`` holds ``serve.copy_in``, both inputs onto the device
-    (counter ``serve.copy_in_bytes``), and ``serve.forward``."""
+    (``serve/staging.py``; counter ``serve.copy_in_bytes``, and on the card
+    ``serve.copy_in_staged`` and ``serve.copy_in_waits``), and
+    ``serve.forward``, enqueued behind the copy without a wait."""
     fwd = ServingForward(opt, model)
-    dev = _device(model)
+    copy_in = CopyIn(_device(model))
 
     def infer(x_path, x_omic) -> Dict[str, torch.Tensor]:
         new_request()
         with span("serve.infer"), torch.inference_mode():
             with span("serve.copy_in"):
-                xp = torch.as_tensor(x_path, device=dev)
-                xo = torch.as_tensor(x_omic, dtype=torch.float32, device=dev)
+                xp, xo = copy_in(x_path, x_omic)
             count("serve.copy_in_bytes", xp.nbytes + xo.nbytes)
             with span("serve.forward"):
                 return fwd(xp, xo)

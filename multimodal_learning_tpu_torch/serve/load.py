@@ -24,6 +24,7 @@ import torch.utils._pytree as pytree
 from torch.export.graph_signature import InputKind, OutputKind
 
 from ..ops import kron_fusion, paired_conv  # noqa: F401  (register ops)
+from .staging import CopyIn
 
 
 def _shape_check(program) -> Callable:
@@ -58,7 +59,8 @@ def _shape_check(program) -> Callable:
 
 def load_exported(path: str, device) -> Callable:
     """The serving function of the artifact at ``path`` on ``device``:
-    inputs may be numpy arrays or tensors on any device; outputs are
+    inputs may be numpy arrays or tensors on any device, taken onto it as
+    ``make_infer_fn`` takes them (``serve/staging.py``); outputs are
     float32 tensors on ``device``."""
     dev = torch.device(device)
     with open(path + ".json") as fh:
@@ -80,9 +82,10 @@ def load_exported(path: str, device) -> Callable:
     graph, out_spec = program.graph_module, program.call_spec.out_spec
     check = _shape_check(program)
 
+    copy_in = CopyIn(dev)
+
     def infer(x_path, x_omic) -> Dict[str, torch.Tensor]:
-        inputs = (torch.as_tensor(x_path, device=dev),
-                  torch.as_tensor(x_omic, dtype=torch.float32, device=dev))
+        inputs = copy_in(x_path, x_omic)
         check(*inputs)
         call = list(args)
         for i, x in zip(user, inputs):

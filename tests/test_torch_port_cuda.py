@@ -13,6 +13,7 @@ convolution (B5) is held at rtol 1e-2 / atol 1e-2, about one bf16 ulp at
 its output's scale, against the fp32 convolution of the same bf16 inputs;
 TF32 is off, so the fp32 oracles are IEEE fp32.
 """
+import numpy as np
 import pytest
 import torch
 from torch.nn import functional as F
@@ -983,3 +984,180 @@ def test_deep_resnets_on_card_match_cpu(cuda, arch):
                           want):
         torch.testing.assert_close(a.cpu(), b, rtol=2e-3, atol=5e-4,
                                    msg=f"{arch} {name}")
+
+
+# --- the serving copy-in through the pinned staging buffer (serve/staging.py)
+
+def _host_chunk(n, size=512, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8),
+            rng.normal(size=(n, 80)).astype(np.float32))
+
+
+def _as_tensor(xp, xo, dev):
+    return (torch.as_tensor(xp, device=dev),
+            torch.as_tensor(xo, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.cuda
+def test_staged_copy_in_gives_the_bytes_of_as_tensor(cuda):
+    """Chunks of 1, 64 and 27 patches of 512^2 reach the card bitwise as
+    ``torch.as_tensor`` takes them, each through the pinned buffer (one
+    ``serve.copy_in_staged`` a chunk), the buffer growing at 64 and not
+    again at 27; the caller overwrites its arrays as soon as each call
+    returns."""
+    from multimodal_learning_tpu_torch.serve.staging import CopyIn, layout
+    from multimodal_learning_tpu_torch.utils import logging as rec
+    copy_in, sizes = CopyIn(cuda), []
+    rec.enable()
+    try:
+        for n in (1, 64, 27):
+            xp, xo = _host_chunk(n, seed=n)
+            want = _as_tensor(xp, xo, cuda)
+            got = copy_in(xp, xo)
+            xp[:], xo[:] = 0, 0
+            sizes.append(copy_in._buf.numel())
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                assert torch.equal(g, w), n
+    finally:
+        counts = rec.collect().counts
+    assert sum(v for (k, _), v in counts.items()
+               if k == "serve.copy_in_staged") == 3
+    assert sizes == [layout([n * 512 * 512 * 3, n * 80 * 4])[1]
+                     for n in (1, 64, 64)]
+
+
+@pytest.mark.cuda
+def test_staged_copy_in_waits_for_the_ring_between_back_to_back_calls(cuda):
+    """Two calls with nothing read back between them, the DMA held back
+    by a sleeping kernel ahead of the first: the second waits on the
+    buffer's event (``serve.copy_in_waits``) and each call gets its own
+    inputs."""
+    from multimodal_learning_tpu_torch.serve.staging import CopyIn
+    from multimodal_learning_tpu_torch.utils import logging as rec
+    copy_in = CopyIn(cuda)
+    a, b = _host_chunk(16, seed=1), _host_chunk(16, seed=2)
+    want = [_as_tensor(*a, cuda), _as_tensor(*b, cuda)]
+    copy_in(*a)
+    torch.cuda.synchronize()
+    rec.enable()
+    try:
+        torch.cuda._sleep(200_000_000)
+        got = [copy_in(*a), copy_in(*b)]
+    finally:
+        counts = rec.collect().counts
+    torch.cuda.synchronize()
+    assert sum(v for (k, _), v in counts.items()
+               if k == "serve.copy_in_waits") >= 1
+    for g, w in zip(got, want):
+        assert all(torch.equal(x, y) for x, y in zip(g, w))
+
+
+@pytest.mark.cuda
+def test_staged_copy_in_takes_views_pinned_and_device_tensors(cuda):
+    """A numpy view that is not contiguous, a pageable CPU tensor and a
+    pinned CPU tensor go through the buffer (made inside
+    ``torch.inference_mode``, written outside it), the pinned one
+    overwritten by the caller as soon as the call returns, behind a
+    sleeping kernel that holds the copy back; a tensor on the card is used
+    as it is."""
+    from multimodal_learning_tpu_torch.serve.staging import CopyIn
+    from multimodal_learning_tpu_torch.utils import logging as rec
+    copy_in = CopyIn(cuda)
+    xp, xo = _host_chunk(6, size=64, seed=3)
+    with torch.inference_mode():
+        copy_in(xp, xo)
+    view, oview = xp[::2, 3:40].transpose(0, 2, 1, 3), xo[1::2]
+    on_card = _as_tensor(xp, xo, cuda)
+    pinned = (torch.from_numpy(xp).pin_memory(),
+              torch.from_numpy(xo).pin_memory())
+    torch.cuda.synchronize()
+    rec.enable()
+    try:
+        got = copy_in(view, oview)
+        got_pageable = copy_in(torch.from_numpy(xp), torch.from_numpy(xo))
+        torch.cuda._sleep(200_000_000)
+        got_pinned = copy_in(*pinned)
+        pinned[0].zero_()
+        pinned[1].zero_()
+        got_card = copy_in(*on_card)
+    finally:
+        counts = rec.collect().counts
+    torch.cuda.synchronize()
+    assert sum(v for (k, _), v in counts.items()
+               if k == "serve.copy_in_staged") == 3
+    for g, w in zip(got, _as_tensor(view, oview, cuda)):
+        assert torch.equal(g, w)
+    for g, w in zip(got_pageable + got_pinned, on_card + on_card):
+        assert torch.equal(g, w)
+    assert got_card[0] is on_card[0] and got_card[1] is on_card[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_served_outputs_equal_those_of_as_tensor_inputs(cuda, dtype):
+    """``make_infer_fn`` on the card serves chunks of 1, 64 and 1500 patches
+    of 64^2 (1500: the buffer grows), a view that is not contiguous, and
+    two chunks in a row with no read-back between them whose arrays the
+    caller overwrites as each call returns, bitwise as the serving forward
+    of ``torch.as_tensor`` inputs."""
+    from multimodal_learning_tpu_torch.config import Options
+    from multimodal_learning_tpu_torch.models import define_model
+    from multimodal_learning_tpu_torch.serve import (ServingForward,
+                                                     make_infer_fn)
+    opt = Options(mode="pathomic", task="grad", input_size_path=64,
+                  path_dim=16, omic_dim=16, mmhid=16, pallas_fusion="train",
+                  compute_dtype=dtype)
+    model = define_model(opt, generator=torch.Generator().manual_seed(3))
+    model.to(cuda)
+    infer, fwd = make_infer_fn(opt, model), ServingForward(opt, model)
+
+    def want(xp, xo):
+        with torch.inference_mode():
+            return fwd(*_as_tensor(xp, xo, cuda))
+
+    chunks = [_host_chunk(n, size=64, seed=n) for n in (1, 64, 1500)]
+    chunks.append((chunks[2][0][::3], chunks[2][1][::3]))
+    for xp, xo in chunks:
+        got, ref = infer(xp, xo), want(xp, xo)
+        assert sorted(got) == sorted(ref)
+        assert all(torch.equal(got[k], ref[k]) for k in ref), len(xp)
+    a, b = _host_chunk(64, size=64, seed=5), _host_chunk(64, size=64, seed=6)
+    ref = [want(*a), want(*b)]
+    got = []
+    for xp, xo in (a, b):
+        got.append(infer(xp, xo))
+        xp[:], xo[:] = 0, 0
+    for g, r in zip(got, ref):
+        assert all(torch.equal(g[k], r[k]) for k in r)
+
+
+@pytest.mark.cuda
+def test_staged_copy_in_keeps_concurrent_callers_apart(cuda):
+    """Twelve threads (more than the card's host has cores) share one
+    buffer, with a short switch interval: each call gets its own inputs."""
+    import sys
+    import threading
+    from multimodal_learning_tpu_torch.serve.staging import CopyIn
+    copy_in, ok = CopyIn(cuda), []
+
+    def work(t):
+        for j in range(5):
+            xp, xo = _host_chunk(4, seed=100 * t + j)
+            got, want = copy_in(xp, xo), _as_tensor(xp, xo, cuda)
+            ok.append(all(torch.equal(g, w) for g, w in zip(got, want)))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(t,)) for t in range(12)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert len(ok) == 60 and all(ok)

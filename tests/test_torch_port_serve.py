@@ -210,6 +210,7 @@ PORT_MODULES = [
     "multimodal_learning_tpu_torch.serve",
     "multimodal_learning_tpu_torch.serve.export",
     "multimodal_learning_tpu_torch.serve.load",
+    "multimodal_learning_tpu_torch.serve.staging",
     "multimodal_learning_tpu_torch.cli",
     "multimodal_learning_tpu_torch.cli._platform",
     "multimodal_learning_tpu_torch.cli.convert_torch",
