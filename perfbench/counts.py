@@ -3,9 +3,10 @@
 The yardstick of every roofline share and MFU the benchmark reports.  The
 peaks are NVIDIA's data sheet for the H100 SXM (dense, no sparsity), at
 the full 700 W power limit.  Only multiply-accumulates of convolutions,
-linear layers, bilinear forms and the contrast products are counted (one
-MAC = 2 FLOP); BatchNorm, activations, pooling and the optimizer are
-left out, as MFU conventionally does.
+linear layers, bilinear forms, attention's two products and the contrast
+products are counted (one MAC = 2 FLOP); normalisation, activations,
+softmax, pooling and the optimizer are left out, as MFU conventionally
+does.
 """
 from __future__ import annotations
 
@@ -20,33 +21,101 @@ def _out(size: int, k: int, stride: int, pad: int) -> int:
     return (size + 2 * pad - k) // stride + 1
 
 
-def resnet18_layers(size: int, path_dim: int = 128, n_classes: int = 3,
-                    imagenet_head: bool = False) -> List[Tuple[str, int]]:
-    """(name, MACs per image) of each convolution and linear layer of the
-    ResNet18 trunk at ``size``² and its heads: the port's grading heads
-    (``fc_new1`` 512 -> path_dim, ``fc_new2`` path_dim -> n_classes), or
-    with ``imagenet_head`` torchvision's 512 -> 1000 classifier."""
+# the trunk of a configuration that names none
+RESNET18 = {"kind": "resnet", "stages": (2, 2, 2, 2), "block": "basic"}
+
+
+def _heads(width: int, path_dim: int, n_classes: int,
+           imagenet_head: bool) -> List[Tuple[str, int]]:
+    """The port's grading heads on a trunk of ``width`` features
+    (``fc_new1`` width -> path_dim, ``fc_new2`` path_dim -> n_classes), or
+    with ``imagenet_head`` the published 1000-class classifier."""
+    if imagenet_head:
+        return [("fc", width * 1000)]
+    return [("fc_new1", width * path_dim), ("fc_new2", path_dim * n_classes)]
+
+
+def resnet_layers(size: int, stages, block: str, path_dim: int = 128,
+                  n_classes: int = 3, imagenet_head: bool = False) -> List[Tuple[str, int]]:
+    """(name, MACs per image) of each convolution and linear layer of a
+    torchvision ResNet trunk at ``size``² with ``stages`` blocks per stage,
+    ``basic`` (two 3x3s; ResNet18/34) or ``bottleneck`` (1x1, strided 3x3,
+    1x1 at four times the planes; ResNet50 v1.5), and its heads
+    (:func:`_heads`)."""
+    expansion = {"basic": 1, "bottleneck": 4}[block]
     layers = []
     h = _out(size, 7, 2, 3)
     layers.append(("conv1", 64 * 3 * 49 * h * h))
     h = _out(h, 3, 2, 1)                        # max pool
     cin = 64
-    for stage, planes in enumerate((64, 128, 256, 512), 1):
-        for block in range(2):
-            stride = 2 if stage > 1 and block == 0 else 1
+    for stage, (planes, n) in enumerate(zip((64, 128, 256, 512), stages), 1):
+        cout = planes * expansion
+        for blk in range(n):
+            stride = 2 if stage > 1 and blk == 0 else 1
             ho = _out(h, 3, stride, 1)
-            name = f"layer{stage}.{block}"
-            layers.append((f"{name}.conv1", planes * cin * 9 * ho * ho))
-            layers.append((f"{name}.conv2", planes * planes * 9 * ho * ho))
-            if stride != 1 or cin != planes:
-                layers.append((f"{name}.downsample", planes * cin * ho * ho))
-            cin, h = planes, ho
-    if imagenet_head:
-        layers.append(("fc", 512 * 1000))
-    else:
-        layers.append(("fc_new1", 512 * path_dim))
-        layers.append(("fc_new2", path_dim * n_classes))
-    return layers
+            name = f"layer{stage}.{blk}"
+            if block == "basic":
+                layers.append((f"{name}.conv1", planes * cin * 9 * ho * ho))
+                layers.append((f"{name}.conv2",
+                               planes * planes * 9 * ho * ho))
+            else:
+                layers.append((f"{name}.conv1", planes * cin * h * h))
+                layers.append((f"{name}.conv2",
+                               planes * planes * 9 * ho * ho))
+                layers.append((f"{name}.conv3", cout * planes * ho * ho))
+            if stride != 1 or cin != cout:
+                layers.append((f"{name}.downsample", cout * cin * ho * ho))
+            cin, h = cout, ho
+    return layers + _heads(cin, path_dim, n_classes, imagenet_head)
+
+
+def resnet18_layers(size: int, **kw) -> List[Tuple[str, int]]:
+    return resnet_layers(size, (2, 2, 2, 2), "basic", **kw)
+
+
+def vit_layers(size: int, patch: int, depth: int, width: int, heads: int,
+               mlp: int, path_dim: int = 128, n_classes: int = 3,
+               imagenet_head: bool = False) -> List[Tuple[str, int]]:
+    """(name, MACs per image) of a ViT trunk at ``size``²: the patch
+    embedding, then in each of ``depth`` pre-norm blocks over the
+    (size / patch)² patch tokens and the class token the qkv projection,
+    the two attention products (q k^T and the weights times v, over
+    ``heads`` heads of width / heads), the output projection and the MLP's
+    two layers; and the heads (:func:`_heads`) on the class token."""
+    n_patches = (size // patch) ** 2
+    n = n_patches + 1
+    d = width // heads
+    layers = [("patch_embed", width * 3 * patch * patch * n_patches)]
+    for i in range(depth):
+        b = f"blocks.{i}"
+        layers += [(f"{b}.attn.qkv", n * width * 3 * width),
+                   (f"{b}.attn.scores", heads * n * n * d),
+                   (f"{b}.attn.values", heads * n * n * d),
+                   (f"{b}.attn.proj", n * width * width),
+                   (f"{b}.mlp.fc1", n * width * mlp),
+                   (f"{b}.mlp.fc2", n * mlp * width)]
+    return layers + _heads(width, path_dim, n_classes, imagenet_head)
+
+
+def trunk_layers(trunk, size: int, path_dim: int = 128,
+                 n_classes: int = 3) -> List[Tuple[str, int]]:
+    """The layers of the pathology trunk a configuration's ``"trunk"``
+    names (``{"kind": "resnet", "stages": ..., "block": ...}`` or
+    ``{"kind": "vit", "patch": ..., "depth": ..., "width": ..., "heads":
+    ..., "mlp": ...}``); ResNet18 where it names none."""
+    args = dict(trunk or RESNET18)
+    kind = args.pop("kind")
+    build = {"resnet": resnet_layers, "vit": vit_layers}[kind]
+    return build(size, path_dim=path_dim, n_classes=n_classes, **args)
+
+
+def attention_fwd_cost(b: int, heads: int, n: int, d: int) -> Dict:
+    """One attention forward over ``b`` images of ``n`` tokens and
+    ``heads`` heads of ``d``: the two products in bf16 on the tensor
+    cores; reads q, k and v and writes o, in bf16."""
+    return {"bytes": 2 * 4 * b * heads * n * d,
+            "flop": 4 * b * heads * n * n * d,
+            "flop_per_s": H100_BF16_FLOP_PER_S}
 
 
 def resnet18_macs(size: int, **kw) -> int:
@@ -72,8 +141,9 @@ def pofusion_macs(dim1: int = 128, dim2: int = 128, mmhid: int = 128,
 
 
 def pathomic_fwd_macs(size: int, path_dim: int, omic_dim: int, mmhid: int,
-                      input_dim: int = 80, n_classes: int = 3) -> int:
-    return (resnet18_macs(size, path_dim=path_dim, n_classes=n_classes)
+                      input_dim: int = 80, n_classes: int = 3,
+                      trunk=None) -> int:
+    return (sum(m for _, m in trunk_layers(trunk, size, path_dim, n_classes))
             + maxnet_macs(input_dim, omic_dim, n_classes)
             + pofusion_macs(path_dim, omic_dim, mmhid, n_classes))
 
@@ -126,14 +196,17 @@ def clat_student_train_flops_per_patch(size: int, path_dim: int,
     return 2.0 * (student + ema + teacher + heads + contrast)
 
 
-def serve_flops_per_patch(mode: str, size: int, path_dim: int,
-                          omic_dim: int, mmhid: int, input_dim: int = 80,
-                          n_classes: int = 3) -> float:
-    if mode == "path":
-        return 2.0 * resnet18_macs(size, path_dim=path_dim,
-                                   n_classes=n_classes)
-    return 2.0 * pathomic_fwd_macs(size, path_dim, omic_dim, mmhid,
-                                   input_dim, n_classes)
+def serve_flops_per_patch(cfg: Dict, opt) -> float:
+    """The eval forward per patch of a configuration (``cfg``, its file)
+    run with ``opt``: its pathology trunk (``"trunk"``, ResNet18 where
+    absent) and heads, and in ``pathomic`` serving MaxNet and pofusion."""
+    o, trunk = opt, cfg.get("trunk")
+    if cfg["program"]["serve"] == "path":
+        return 2.0 * sum(m for _, m in trunk_layers(
+            trunk, o.input_size_path, o.path_dim, o.label_dim))
+    return 2.0 * pathomic_fwd_macs(o.input_size_path, o.path_dim, o.omic_dim,
+                                   o.mmhid, o.input_size_omic, o.label_dim,
+                                   trunk)
 
 
 def kron_train_fwd_cost(b: int, d1: int, d2: int, k: int) -> Dict:

@@ -10,6 +10,12 @@ configuration and a traffic mix; everything else is found by name:
 - ``metrics/<metric>.py``: one reader per metric, ``read(run)``;
 - ``reference/<reference>.py``: the configuration's plain reference;
 - ``limits/<cell>.json``: the limit of each number ``correct`` compares.
+
+A traced run (``--trace 1``) also switches on the port's own recorder of
+spans and counters before set-up and collects it once the window has
+closed: the readers get it as ``run.program`` (``trace.py``), and the
+result's breakdown gains ``idle_by_span``.  An untraced run, which gives
+the end-to-end metrics, leaves the recorder off.
 """
 from __future__ import annotations
 
@@ -476,14 +482,21 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
         _profiler_warm(dev)
         ctx.mark("profiler")
     kind = tr["kind"]
-    out = {"train": _train, "serve": _serve}[kind](ctx)
+    from multimodal_learning_tpu_torch.utils import logging as recorder
+    if traced:
+        recorder.enable()
+    try:
+        out = {"train": _train, "serve": _serve}[kind](ctx)
+    finally:
+        program = recorder.collect() if traced else None
 
     tracer = out["tracer"]
     run_ = SimpleNamespace(
         kind=kind, cell=cell, cfg=cfg, traffic=tr, opt=opt,
         count=out["count"], batch=out["batch"], window_s=out["window_s"],
         setup_s=ctx.setup_s, spans=out["phases"].spans,
-        trace=tracer.result, traced_count=tracer.done, device=dev)
+        trace=tracer.result, traced_count=tracer.done, device=dev,
+        program=program)
     metrics = {}
     for m, read in _readers(man, workload, traced):
         v = read(run_)
@@ -505,7 +518,8 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
         dev_info["window_s"] = t.window_s if t else 0.0
         if t is not None:
             result["breakdown"] = {"device_ops": tracing.device_ops(t),
-                                   "idle_gaps": tracing.idle_gaps(t)}
+                                   "idle_gaps": tracing.idle_gaps(t),
+                                   "idle_by_span": tracing.idle_by_span(t)}
     result["check"] = numbers
     if ctx.keep is not None:
         ctx.keep["stages"] = _stages(ctx)

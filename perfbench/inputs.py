@@ -74,7 +74,17 @@ def _law(name: str, shape: Tuple[int, ...],
     linear and bilinear kernels 1/fan-in), biases at 1/(3 fan-in),
     BatchNorm scales near 1 and shifts near 0, running means near 0 and
     running variances spread about 1 (log-normal, taken apart), bank rows
-    as the CRD bank's U(+-sqrt(3/D)) variance."""
+    as the CRD bank's U(+-sqrt(3/D)) variance.
+
+    A transformer's tensors: LayerNorm scales (a 1-D ``weight`` with no
+    running statistics beside it) near 1 and its shifts (a 1-D ``bias``
+    beside a 1-D ``weight``) near 0, both at 0.1, as BatchNorm's;
+    ``pos_embed`` and ``cls_token`` at 0.02 about 0, as timm initialises
+    them; LayerScale factors (a 1-D ``gamma``) at 0.1 +- 0.02.  That 0.1
+    is assumed: a trained LayerScale sits far above its 1e-5 start, and at
+    0.1 each block changes the residual stream measurably, so that a
+    comparison of outputs sees every block; at the start value, or at the
+    bias law about 0, the blocks all but vanish from the output."""
     prefix, _, leaf = name.rpartition(".")
     is_bn = f"{prefix}.running_mean" in shapes
     if leaf == "num_batches_tracked":
@@ -85,6 +95,16 @@ def _law(name: str, shape: Tuple[int, ...],
         return 0.25, 0.0         # exponentiated by make_weights
     if is_bn:
         return (0.1, 1.0) if leaf == "weight" else (0.1, 0.0)
+    if leaf in ("pos_embed", "cls_token"):
+        return 0.02, 0.0
+    sibling = f"{prefix}.weight"
+    if len(shape) == 1:
+        if leaf == "gamma":
+            return 0.02, 0.1
+        if leaf == "weight":
+            return 0.1, 1.0
+        if leaf == "bias" and len(shapes.get(sibling, ())) == 1:
+            return 0.1, 0.0
     if leaf.startswith("memory_"):
         return 1.0 / math.sqrt(shape[1]), 0.0
     if len(shape) == 4:
@@ -93,7 +113,6 @@ def _law(name: str, shape: Tuple[int, ...],
         return 1.0 / math.sqrt(3.0 * shape[1]), 0.0
     if len(shape) == 2:
         return 1.0 / math.sqrt(shape[1]), 0.0
-    sibling = f"{prefix}.weight"
     fan = _fan_in(shapes[sibling]) if sibling in shapes else shape[0]
     return 1.0 / math.sqrt(3.0 * fan), 0.0
 

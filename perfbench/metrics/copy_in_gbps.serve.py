@@ -1,11 +1,10 @@
 """The serving copy-in's rate on the device: the port's counter
 ``serve.copy_in_bytes`` over the traced block's chunks, over the device
 seconds of the host-to-device copies in the traced block, in GB/s."""
-from perfbench import trace
 
 
 def read(run):
-    prog, t = getattr(run, "program", None), run.trace
+    prog, t = run.program, run.trace
     if run.kind != "serve" or prog is None or t is None:
         return None
     lo, hi = t.window

@@ -1,14 +1,15 @@
 """Host ms per chunk in the serving call's ``serve.copy_in``: both inputs
-onto the device (``torch.as_tensor`` from pageable host memory), the mean
-over every chunk of the window.  Recorded inside the port
-(``perfbench/program.py``)."""
-from perfbench import program
+onto the device, on the card through ``serve/staging.py:CopyIn`` (the
+host's ``copy_`` into one pinned buffer, then one ``non_blocking``
+host-to-device copy), the mean over every chunk of the window.  Recorded
+inside the port, in traced runs."""
+from perfbench import trace
 
 
 def read(run):
-    prog = getattr(run, "program", None)
+    prog = run.program
     if run.kind != "serve" or prog is None:
         return None
-    return program.ms_per_request(
-        prog, program.requests(prog, "serve.infer", run.count),
+    return trace.ms_per_request(
+        prog, trace.requests(prog, "serve.infer", run.count),
         ("serve.copy_in",))

@@ -1,13 +1,13 @@
 """Host ms per chunk in the serving call's ``serve.forward``: the eval
 forward's dispatch, the mean over every chunk of the window.  Recorded
-inside the port (``perfbench/program.py``)."""
-from perfbench import program
+inside the port, in traced runs."""
+from perfbench import trace
 
 
 def read(run):
-    prog = getattr(run, "program", None)
+    prog = run.program
     if run.kind != "serve" or prog is None:
         return None
-    return program.ms_per_request(
-        prog, program.requests(prog, "serve.infer", run.count),
+    return trace.ms_per_request(
+        prog, trace.requests(prog, "serve.infer", run.count),
         ("serve.forward",))

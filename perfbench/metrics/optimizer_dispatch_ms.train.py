@@ -1,13 +1,13 @@
 """Host ms per train step in its ``step.optimizer``, the mean over every
 step of the window.  The step makes no host synchronisation, so this is
-dispatch.  Recorded inside the port (``perfbench/program.py``)."""
-from perfbench import program
+dispatch.  Recorded inside the port, in traced runs."""
+from perfbench import trace
 
 
 def read(run):
-    prog = getattr(run, "program", None)
+    prog = run.program
     if run.kind != "train" or prog is None:
         return None
-    return program.ms_per_request(
-        prog, program.requests(prog, "step.forward", run.count),
+    return trace.ms_per_request(
+        prog, trace.requests(prog, "step.forward", run.count),
         ("step.optimizer",))

@@ -1,42 +1,74 @@
-"""What the port records inside itself, read through ``perfbench/program.py``
-on the CPU at tiny sizes, in this process.
+"""What the port records inside itself, read through ``harness.run`` on the
+CPU at tiny sizes, in this process.
 
-- the benchmark's own runs (``run.py``, ``harness.run``) leave the port's
-  recorder off;
-- a traced run through ``program.run`` reads the host-side metrics of
-  ``program.ENTRIES`` (the serving copy-in and forward, the loader's
-  batch, the train step's phases) and no device metric, and its
-  ``idle_by_span`` holds the seconds of ``idle_gaps``;
+- untraced runs, which give the end-to-end metrics, leave the port's
+  recorder off; traced runs switch it on before set-up and collect it
+  back to empty after the window;
+- a traced run reads the host-side metrics taken from the recorder (the
+  serving copy-in and forward, the loader's batch, the train step's
+  phases) and no card-only metric, and its ``idle_by_span`` holds the
+  seconds of ``idle_gaps``;
 - ``idle_by_span`` puts each gap under the innermost span of the
   dispatching thread, else under its harness phase;
-- every entry keeps the contract's keys and has its reader.
+- the copy-in's waits are read per chunk of the window;
+- every entry read from the recorder keeps the contract's keys and has
+  its reader.
 """
 import ast
+import importlib.util
 import os
+from types import SimpleNamespace
 
 import pytest
 
-from perfbench import harness, program, trace
+from perfbench import harness, trace
 from perfbench.tests import tiny
 from perfbench.tests.test_perfbench_layout import NAME, UNIT, _line
 from multimodal_learning_tpu_torch.utils import logging as recorder
 
-DEVICE = {"copy_in_gbps.serve", "forward_idle.serve"}
-
-
-def _run(cell, traced):
-    import torch
-    torch.set_num_threads(2)
-    return program.run(cell, 3000000019, 0.5, traced, tiny.manifest(),
-                       device="cpu", scale=tiny.scale(cell))
+# the metrics read from the port's recorder, and of them those that need
+# the card: a device trace, or a counter only the card's copy-in keeps
+RECORDED = {"copy_in_ms.serve", "forward_dispatch_ms.serve",
+            "copy_in_gbps.serve", "copy_in_waits.serve",
+            "forward_idle.serve", "loader_batch_ms.train",
+            "batch_ready.train", "forward_dispatch_ms.train",
+            "backward_dispatch_ms.train", "optimizer_dispatch_ms.train"}
+CARD = {"copy_in_gbps.serve", "copy_in_waits.serve", "forward_idle.serve"}
 
 
 def _ours(cell):
-    return {name for name, *_, cells in program.ENTRIES if cell in cells}
+    return {m["name"] for m in tiny.manifest()["per_layer"]
+            if m["name"] in RECORDED and cell in m["workloads"]}
 
 
-def test_the_benchmarks_own_runs_leave_the_recorder_off():
+def _watch(monkeypatch):
+    """Counts of the recorder's ``enable`` and ``collect`` calls."""
+    calls = {"enable": 0, "collect": 0}
+    for name in calls:
+        real = getattr(recorder, name)
+
+        def wrapped(real=real, name=name):
+            calls[name] += 1
+            return real()
+        monkeypatch.setattr(recorder, name, wrapped)
+    return calls
+
+
+def test_untraced_runs_leave_the_recorder_off(monkeypatch):
+    calls = _watch(monkeypatch)
     tiny.run("pofusion_teacher.serve")
+    assert calls == {"enable": 0, "collect": 0}
+    got = recorder.collect()
+    assert got.spans == [] and got.counts == {}
+
+
+def test_traced_runs_enable_the_recorder_and_collect_it_back_to_empty(
+        monkeypatch):
+    calls = _watch(monkeypatch)
+    r = tiny.run("clat_student.serve", traced=True)
+    assert calls == {"enable": 1, "collect": 1}
+    assert "copy_in_ms.serve" in r["metrics"]
+    assert recorder.span("after") is recorder._NOOP
     got = recorder.collect()
     assert got.spans == [] and got.counts == {}
 
@@ -45,11 +77,11 @@ def test_the_benchmarks_own_runs_leave_the_recorder_off():
                                   "pofusion_teacher.train",
                                   "clat_student.train"])
 def test_a_traced_run_reads_what_the_port_records(cell):
-    r = _run(cell, traced=True)
+    r = tiny.run(cell, traced=True)
     assert r["correct"] is True and list(r)[-1] == "check"
-    want = _ours(cell) - DEVICE
+    want = _ours(cell) - CARD
     assert want and want <= set(r["metrics"])
-    assert not DEVICE & set(r["metrics"])
+    assert not CARD & set(r["metrics"])
     for name in want:
         assert r["metrics"][name]["value"] >= 0
     if cell.endswith(".serve"):
@@ -67,42 +99,67 @@ def test_a_traced_run_reads_what_the_port_records(cell):
 
 
 def test_an_untraced_run_reports_the_end_to_end_metrics_only():
-    r = _run("clat_student.serve", traced=False)
-    man = program.with_entries(tiny.manifest())
+    r = tiny.run("clat_student.serve")
     assert set(r["metrics"]) == {
-        m["name"] for m in man["end_to_end"]
+        m["name"] for m in tiny.manifest()["end_to_end"]
         if "clat_student.serve" in m.get("workloads", ["clat_student.serve"])}
     assert "breakdown" not in r
 
 
 def test_idle_by_span_takes_the_innermost_span_else_the_phase():
-    iv = trace.Interval
+    iv, ev = trace.Interval, trace.Event
     tr = trace.Trace(kernels=[iv("k", 1.0, 2.0), iv("k", 4.0, 5.0),
                               iv("k", 7.0, 8.0)],
                      copies=[], phases=[iv("infer_call", 0.0, 6.0),
                                         iv("readback", 6.0, 9.0)],
-                     window=(0.0, 9.0))
-    ev = program.Event
-    prog = program.Program(spans=[], counts={}, dispatch=1, events=[
+                     window=(0.0, 9.0), dispatch=1, events=[
         ev("serve.infer", 0.0, 6.0, 1), ev("serve.forward", 2.0, 6.0, 1),
         ev("fusion", 2.5, 3.5, 1), ev("serve.forward", 6.0, 9.0, 2)])
-    got = dict(program.idle_by_span(tr, prog))
+    got = dict(trace.idle_by_span(tr))
     # gaps 0-1, 2-4, 5-7 and 8-9; the last span runs on another thread
     assert got == {"serve.infer": 1.0,
                    "serve.infer/serve.forward/fusion": 2.0,
                    "serve.infer/serve.forward": 2.0, "readback": 1.0}
     assert sum(got.values()) == sum(s for _, s in trace.idle_gaps(tr))
+    # past the cap the smallest paths are summed, the seconds kept
+    capped = trace.idle_by_span(tr, top=2)
+    assert len(capped) == 2 and capped[-1] == ["rest", 4.0]
+    assert sum(s for _, s in capped) == sum(got.values())
+
+
+def _reader(name):
+    path = os.path.join(harness.BENCH, "metrics", name + ".py")
+    spec = importlib.util.spec_from_file_location("reader", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+def test_copy_in_waits_is_the_share_of_the_windows_chunks_that_waited():
+    span = recorder.SpanRecord
+    # five chunks, the first a warm-up outside the window of four; two of
+    # the window's waited
+    spans = [span(i, "serve.infer", 0, 1, None, 1, rid, False)
+             for i, rid in enumerate(range(1, 6))]
+    counts = {("serve.copy_in_waits", rid): n
+              for rid, n in zip(range(1, 6), (1, 0, 1, 0, 1))}
+    run = SimpleNamespace(kind="serve", count=4,
+                          program=recorder.Recording(spans, counts))
+    read = _reader("copy_in_waits.serve")
+    assert read(run) == 50.0
+    # no counter (the CPU's copy-in keeps none): nothing to read
+    run.program = recorder.Recording(spans, {})
+    assert read(run) is None
 
 
 def test_the_entries_keep_the_contract():
-    man = program.with_entries(tiny.manifest())
+    man = tiny.manifest()
     e2e = {m["name"] for m in man["end_to_end"]}
     cells = {w["name"] for w in man["workloads"]}
-    ours = [m for m in man["per_layer"]
-            if m["name"] in {e[0] for e in program.ENTRIES}]
-    assert len(ours) == len(program.ENTRIES)
-    assert not {m["name"] for m in ours} & {
-        m["name"] for m in harness.manifest()["per_layer"]}
+    ours = [m for m in man["per_layer"] if m["name"] in RECORDED]
+    assert {m["name"] for m in ours} == RECORDED
+    serve = {m["name"] for m in harness.manifest()["per_layer"]}
+    assert {n for n in RECORDED if n.endswith(".serve")} <= serve
     for m in ours:
         assert set(m) == {"name", "unit", "better", "source", "layer",
                           "moves", "workloads"}

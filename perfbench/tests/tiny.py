@@ -29,7 +29,18 @@ _TRAIN_METRICS = (
      "train step"),
     ("kron_train_fwd_roofline", "%", "higher", "device_trace", "kernels"),
     ("device_idle.train", "%", "lower", "device_trace", "device"),
-    ("mfu.train", "%", "higher", "host_clock", "device"))
+    ("mfu.train", "%", "higher", "host_clock", "device"),
+    # read from the port's recorder, on in traced runs
+    ("loader_batch_ms.train", "ms", "lower", "program_span",
+     "input pipeline"),
+    ("batch_ready.train", "%", "higher", "program_counter",
+     "input pipeline"),
+    ("forward_dispatch_ms.train", "ms", "lower", "program_span",
+     "train step"),
+    ("backward_dispatch_ms.train", "ms", "lower", "program_span",
+     "train step"),
+    ("optimizer_dispatch_ms.train", "ms", "lower", "program_span",
+     "train step"))
 
 
 def manifest():

@@ -1,4 +1,5 @@
-"""Reading a ``torch.profiler`` trace of the traced block of a window.
+"""Reading a ``torch.profiler`` trace of the traced block of a window, and
+what the port recorded inside itself.
 
 The harness wraps each phase of its loop in ``record_function("pb.<phase>")``
 and profiles a block of steps or chunks with CPU and CUDA activity.  From
@@ -8,6 +9,14 @@ them and which of the harness's phases the host was in at each gap, and
 the kernels by name.  The busy-time and top-kernel arithmetic is that of
 the port's on-chip smoke test (``_profile_steps``), here over explicit
 intervals so that overlapping kernels are not counted twice.
+
+In a traced run the port's recorder
+(``multimodal_learning_tpu_torch/utils/logging.py``) is on: its spans also
+lie in the profile as ``mml.<name>`` ranges, which :func:`parse` keeps with
+their threads and the thread of the harness's phases, and its
+``Recording`` (every span and counter from set-up to the window's end) is
+what the readers get as ``run.program``: :func:`requests`,
+:func:`ms_per_request` and :func:`idle_by_span` read them.
 """
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ from collections import defaultdict
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 PREFIX = "pb."
+PROGRAM_PREFIX = "mml."
 
 
 class Interval(NamedTuple):
@@ -23,11 +33,22 @@ class Interval(NamedTuple):
     end: float
 
 
+class Event(NamedTuple):
+    """A span of the port's recorder as the profiler drew it: ``mml.<name>``
+    on a thread, in seconds on the profiler's clock."""
+    name: str
+    start: float
+    end: float
+    thread: int
+
+
 class Trace(NamedTuple):
     kernels: List[Interval]
     copies: List[Interval]
     phases: List[Interval]       # the harness's record_function spans
     window: Tuple[float, float]
+    events: List[Event]          # the port's spans
+    dispatch: Optional[int]      # the thread of the harness's phases
 
     @property
     def window_s(self) -> float:
@@ -50,17 +71,24 @@ def _is_device(ev) -> bool:
 def parse(prof) -> Optional[Trace]:
     """The trace of a stopped ``torch.profiler.profile``; None when it
     holds no phase of the harness.  A ``record_function`` range (the
-    harness's phases, the optimizer's step) is also drawn on the device's
-    timeline under its own name; those copies are not device work."""
+    harness's phases, the port's spans, the optimizer's step) is also
+    drawn on the device's timeline under its own name; those copies are
+    not device work."""
     events = prof.profiler.kineto_results.events()
     host_names = {ev.name() for ev in events if not _is_device(ev)}
-    kernels, copies, phases = [], [], []
+    kernels, copies, phases, spans = [], [], [], []
+    dispatch = None
     for ev in events:
         name = ev.name()
         start, end = _times(ev)
         if not _is_device(ev):
             if name.startswith(PREFIX):
                 phases.append(Interval(name[len(PREFIX):], start, end))
+                if dispatch is None:
+                    dispatch = ev.start_thread_id()
+            elif name.startswith(PROGRAM_PREFIX):
+                spans.append(Event(name[len(PROGRAM_PREFIX):], start, end,
+                                   ev.start_thread_id()))
         elif name not in host_names:
             lower = name.lower()
             bucket = copies if lower.startswith(("memcpy", "memset")) \
@@ -69,7 +97,7 @@ def parse(prof) -> Optional[Trace]:
     if not phases:
         return None
     window = (min(p.start for p in phases), max(p.end for p in phases))
-    return Trace(kernels, copies, phases, window)
+    return Trace(kernels, copies, phases, window, spans, dispatch)
 
 
 def _clip(iv: List[Interval], lo: float, hi: float) -> List[Tuple]:
@@ -96,22 +124,26 @@ def busy_s(tr: Trace) -> float:
     return sum(e - s for s, e in busy_intervals(tr))
 
 
-def idle_gaps(tr: Trace, top: int = 10) -> List[List]:
-    """The device's idle time inside the window, by the harness phase the
-    host was in at the middle of each gap (``other`` where none was),
-    the largest totals first."""
+def _gaps(tr: Trace) -> List[Tuple[float, float]]:
+    """The device's idle intervals inside the window."""
     lo, hi = tr.window
-    busy = busy_intervals(tr)
     gaps, t = [], lo
-    for s, e in busy:
+    for s, e in busy_intervals(tr):
         if s > t:
             gaps.append((t, s))
         t = max(t, e)
     if hi > t:
         gaps.append((t, hi))
+    return gaps
+
+
+def idle_gaps(tr: Trace, top: int = 10) -> List[List]:
+    """The device's idle time inside the window, by the harness phase the
+    host was in at the middle of each gap (``other`` where none was),
+    the largest totals first."""
     phases = sorted(tr.phases, key=lambda p: p.start)
     totals: Dict[str, float] = defaultdict(float)
-    for s, e in gaps:
+    for s, e in _gaps(tr):
         mid = 0.5 * (s + e)
         where = "other"
         for p in phases:
@@ -144,3 +176,66 @@ def kernels_named(tr: Trace, *tags: str) -> List[Interval]:
 
 def count(tr: Trace, phase: str) -> int:
     return sum(1 for p in tr.phases if p.name == phase)
+
+
+def _stacks(intervals, points: List[float]) -> List[list]:
+    """For each of the ascending ``points``, the ``intervals`` (each with
+    ``start`` and ``end``, nested as one thread's spans are) that hold
+    it, outermost first."""
+    ivs = sorted(intervals, key=lambda x: (x.start, -x.end))
+    out, stack, i = [], [], 0
+    for p in points:
+        while i < len(ivs) and ivs[i].start <= p:
+            while stack and stack[-1].end < ivs[i].start:
+                stack.pop()
+            stack.append(ivs[i])
+            i += 1
+        while stack and stack[-1].end < p:
+            stack.pop()
+        out.append([x for x in stack if x.end >= p])
+    return out
+
+
+def idle_by_span(tr: Trace, top: Optional[int] = 10) -> List[List]:
+    """The device's idle seconds in the window by the innermost span of the
+    port on the dispatching thread at each gap's midpoint, named by its
+    path (``serve.infer/serve.forward/fusion``); a gap in no span of the
+    port falls under the harness phase it lies in, as in
+    :func:`idle_gaps` (``other`` where none).  The largest first; past
+    ``top - 1`` paths (None: no cap) the rest are summed under ``rest``,
+    so that the seconds add up to those of every gap."""
+    gaps = _gaps(tr)
+    mids = [0.5 * (s + e) for s, e in gaps]
+    mine = [e for e in tr.events if e.thread == tr.dispatch]
+    totals: Dict[str, float] = defaultdict(float)
+    for (s, e), held, ph in zip(gaps, _stacks(mine, mids),
+                                _stacks(tr.phases, mids)):
+        where = ("/".join(x.name for x in held) if held
+                 else ph[-1].name if ph else "other")
+        totals[where] += e - s
+    out = [[k, v] for k, v in sorted(totals.items(), key=lambda kv: -kv[1])]
+    if top is not None and len(out) > top:
+        out = out[:top - 1] + [["rest", sum(v for _, v in out[top - 1:])]]
+    return out
+
+
+def requests(rec, root: str, n: int) -> List[int]:
+    """The request ids of the last ``n`` spans named ``root`` in the
+    recording ``rec``: the window's chunks (``serve.infer``) or steps
+    (``step.forward``)."""
+    rids: List[int] = []
+    for s in rec.spans:
+        if s.name == root and (not rids or rids[-1] != s.rid):
+            rids.append(s.rid)
+    return rids[-n:] if n > 0 else []
+
+
+def ms_per_request(rec, rids: List[int], names) -> Optional[float]:
+    """The mean over ``rids`` of the milliseconds of their spans named in
+    ``names``, summed per request."""
+    if not rids:
+        return None
+    want = set(rids)
+    ns = sum(s.end_ns - s.start_ns for s in rec.spans
+             if s.rid in want and s.name in names)
+    return ns * 1e-6 / len(rids)
